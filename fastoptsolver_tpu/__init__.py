@@ -1,10 +1,10 @@
-"""fastoptsolver_tpu — a TPU-native first-order composite-optimization framework.
+"""fastoptsolver_tpu — a first-order composite-optimization framework in JAX.
 
-A from-scratch JAX / XLA / Pallas framework covering the problem class of the
+A from-scratch JAX / XLA framework covering the problem class of the
 reference ElBaldo1/FastOptSolver (L1 / ridge / elastic-net regularized least
 squares and smooth objectives; ISTA, FISTA with Nesterov momentum + adaptive
 restart, FISTA-Δ fixed momentum, Armijo backtracking, L-BFGS), redesigned
-TPU-first:
+for an accelerator (it runs on an NVIDIA GPU, and on the CPU for tests):
 
 - solvers are ``lax.while_loop`` / ``lax.scan`` fixed-points over immutable
   state pytrees — one XLA program per solve;
@@ -12,8 +12,6 @@ TPU-first:
   (``fastoptsolver_tpu.batch``);
 - large design matrices shard row/column-wise over a ``jax.sharding.Mesh``
   with psum-reduced distributed matvecs (``fastoptsolver_tpu.parallel``);
-- the fused batched prox-gradient solve runs as a Pallas kernel holding the
-  whole iteration state in VMEM (``fastoptsolver_tpu.kernels``);
 - L-BFGS is implemented from scratch (two-loop recursion over a curvature-pair
   ring buffer, Wolfe line search) in pure JAX — no SciPy/Fortran.
 """
@@ -24,17 +22,17 @@ import os as _os
 
 import jax as _jax
 
-# TPU MXU matmuls default to truncating f32 operands to bf16 (~4e-3 relative
-# error). For a library whose contract is *certified* solves (duality gap ≤
-# 1e-6), that default is wrong everywhere: measured on a v5e, the batched
-# FISTA driver's gradient matvec Q·x silently dropped to bf16 once n was wide
-# enough for XLA to pick the MXU (n ≥ ~64), flooring the achievable gap at
-# ~4e-2 while the identical math at n = 5 (VPU, true f32) certified fine
-# (bench/verify_tpu.py wide_n cases; round-3 finding — same class as the
-# round-2 Gram-precompute bug). Hot paths also annotate their einsums with
-# Precision.HIGHEST explicitly; this global sets the correct default for
-# everything else (problem-protocol matvecs, gap checks, user code built on
-# the library). Opt out / override with FOS_MATMUL_PRECISION=default|bfloat16|…
+# XLA's default f32 matmul precision on an accelerator may run the products
+# in reduced precision: TF32 on a GPU's tensor cores (~1e-3 relative error),
+# bf16 passes elsewhere. For a library whose contract is *certified* solves
+# (duality gap ≤ 1e-6) that default is wrong everywhere: once a contraction
+# is wide enough to go to the matrix units, the gradient Q·x loses most of
+# its mantissa and the achievable gap floors far above the tolerance. Hot
+# paths also annotate their einsums with Precision.HIGHEST explicitly; this
+# global sets the correct default for everything else (problem-protocol
+# matvecs, gap checks, user code built on the library). chip_smoke.py's
+# `precision` phase checks it on the card. Opt out / override with
+# FOS_MATMUL_PRECISION=default|tensorfloat32|bfloat16|…
 _prec = _os.environ.get("FOS_MATMUL_PRECISION", "highest")
 if _prec != "default" and _jax.config.jax_default_matmul_precision is None:
     # Respect an explicit user choice made before this import (the config
@@ -43,7 +41,7 @@ if _prec != "default" and _jax.config.jax_default_matmul_precision is None:
     # (README "numerics contract" section documents this interaction).
     _jax.config.update("jax_default_matmul_precision", _prec)
 
-from . import batch, kernels, ops, parallel, problems, runtime, solvers, utils
+from . import batch, ops, parallel, problems, runtime, solvers, utils
 from .api import solve
 from .estimators import (
     Lasso,

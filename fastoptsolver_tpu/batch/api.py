@@ -11,6 +11,8 @@ tests/test_batch.py).
 """
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 
@@ -18,6 +20,13 @@ from ..ops.lipschitz import lipschitz_for
 from ..solvers.fista import FISTAConfig, fista, fista_with_history
 from ..solvers.ista import ISTAConfig, ista, ista_with_history
 from ..solvers.lbfgs import LBFGSConfig, lbfgs, lbfgs_with_history
+from .fista_gram import (
+    BatchFISTAConfig,
+    BatchResult,
+    BatchState,
+    fista_gram_batch,
+    make_gram_batch,
+)
 
 _SOLVERS = {
     "fista": (fista, fista_with_history),
@@ -43,151 +52,28 @@ def batch_lipschitz(problem_batch, key=None, n_iter: int = 100, tol: float = 1e-
     )
 
 
-def _kernel_route(n: int, cfg, backend: str, interpret: bool):
-    """Shared routing predicate: can/should this (n, cfg) run on the VMEM
-    kernel? Returns ``(use_kernel, reason_if_not)``. Supportability defers to
-    the kernel's own guards (``_check_kernel_cfg`` + ``auto_b_tile``) so the
-    router can never drift from what the kernel actually accepts — any config
-    those guards reject routes to the XLA driver under ``"auto"`` and raises
-    with the guard's message under ``"kernel"``."""
-    if backend not in ("auto", "kernel", "xla"):
-        raise ValueError(f"Unknown backend '{backend}'")
-    if backend == "xla":
-        return False, "backend='xla'"
-    from ..kernels.fista_vmem import _check_kernel_cfg, plan_gram_solve
-
-    try:
-        _check_kernel_cfg(cfg)
-        plan_gram_solve(n, cfg)  # vmem-resident OR qstream (round 5 wide-n)
-    except (ValueError, NotImplementedError) as e:
-        if backend == "kernel":
-            raise ValueError(f"backend='kernel' unsupported here: {e}") from e
-        return False, str(e)
-    if jax.default_backend() == "tpu" or interpret:
-        return True, None
-    reason = "not on TPU (pass interpret=True to force off-TPU)"
-    if backend == "kernel":
-        # Fail here with the clear diagnosis rather than letting Mosaic
-        # lowering die deep inside Pallas with a cryptic backend error.
-        raise ValueError(f"backend='kernel' unsupported here: {reason}")
-    return False, reason
+DEFAULT_CFG = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
 
 
-def solve_gram_batch(gb, cfg=None, backend: str = "auto",
-                     interpret: bool = False, state0=None,
-                     return_state: bool = False,
-                     est_l_iters: int | None = None):
-    """Route a prebuilt ``GramBatch`` to its fastest supported solver.
-
-    ``"auto"``: the certified Pallas path (kernels/fista_vmem.fista_gram_vmem
-    — the VMEM-resident burst engine to n ≈ 104, the single-DMA RESIDENT
-    engine (kernels/resident.py) to the probe-calibrated n = 168, the
-    Q-streaming engine (kernels/qstream.py) beyond; ``plan_gram_solve``
-    picks) when on TPU (or ``interpret``) and the config passes the
-    kernels' own entry guards (every momentum mode runs in-kernel, and —
-    round 5 — so does Armijo backtracking up to the resident ceiling;
-    past-window armijo would need a data-dependent number of Q streams, so
-    it falls back). Otherwise the XLA driver (``fista_gram_batch``).
-    Measured crossovers (bench/wide_n.py on chip, RESULTS.md round 5):
-    burst kernel ≈ 47-49× the driver at n=96; resident ≈ 44-63× at
-    n=128-168 (armijo: 70-75× — its trial matvecs run against the VMEM
-    block); qstream ≈ 3.2-3.4× at n=256-512 (740-754 GB/s effective Q
-    stream vs the driver's ~230 — the driver itself runs at 90-137% of the
-    XLA read rate; its cost IS the per-iteration Q traffic model).
-    ``"kernel"`` forces the Pallas path (raises with the guard's reason if
-    unsupported); ``"xla"`` forces the driver.
-
-    ``state0``/``return_state`` give checkpoint/resume through the routed
-    surface. The paths carry different state types (``FusedSolveState`` /
-    ``ResidentSolveState`` / ``VmemSolveState`` /
-    ``batch.fista_gram.BatchState``), so a non-None ``state0`` PINS the
-    route to the path that produced it — a checkpoint must resume on the
-    engine whose trajectory it holds.
-
-    ``est_l_iters``: forwarded to the resident engine — REQUIRED when
-    resuming a ``ResidentSolveState`` whose run estimated L in-kernel
-    (``solve_lasso_batch`` uses ``_RESIDENT_EST_L_ITERS`` = 96; τ derives
-    from that estimate, so a mismatched mode silently changes the
-    trajectory). A ``gb`` built with ``estimate_l=False`` carries an L
-    sentinel and refuses to resume without it."""
-    from .fista_gram import BatchFISTAConfig, BatchState, fista_gram_batch
-
-    if cfg is None:
-        cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
-    if state0 is not None:
-        from ..kernels import (
-            ResidentSolveState,
-            VmemSolveState,
-            fista_gram_resident,
-            fista_gram_vmem,
-        )
-
-        if isinstance(state0, ResidentSolveState):
-            if backend == "xla":
-                raise ValueError(
-                    "state0 is a ResidentSolveState; it cannot resume on "
-                    "backend='xla'"
-                )
-            if not (jax.default_backend() == "tpu" or interpret):
-                raise ValueError(
-                    "state0 is a kernel-path ResidentSolveState but this "
-                    "host is not on TPU (pass interpret=True to force "
-                    "off-TPU)"
-                )
-            if est_l_iters is None:
-                # a sentinel L (estimate_l=False build) means the original
-                # run derived τ from an IN-KERNEL estimate — resuming with
-                # τ = t_init_factor/1.0 would silently diverge (one small
-                # host fetch, like the engines' own k guards)
-                import numpy as np
-
-                if bool((np.asarray(jax.device_get(gb.L)) == 1.0).all()):
-                    raise ValueError(
-                        "this GramBatch carries the estimate_l=False "
-                        "sentinel; pass est_l_iters= matching the run that "
-                        "produced state0 (solve_lasso_batch uses 96)"
-                    )
-            return fista_gram_resident(gb, cfg, interpret=interpret,
-                                       state0=state0,
-                                       est_l_iters=est_l_iters,
-                                       return_state=return_state)
-        if isinstance(state0, VmemSolveState):
-            if backend == "xla":
-                raise ValueError(
-                    "state0 is a kernel-path VmemSolveState; it cannot "
-                    "resume on backend='xla' (the XLA driver's BatchState "
-                    "carries a different trajectory layout)"
-                )
-            if not (jax.default_backend() == "tpu" or interpret):
-                # same diagnosis _kernel_route gives a fresh solve — a
-                # kernel-state resume off-TPU must fail here, not deep in
-                # Mosaic lowering (ADVICE r4)
-                raise ValueError(
-                    "state0 is a kernel-path VmemSolveState but this host is "
-                    "not on TPU (pass interpret=True to force off-TPU)"
-                )
-            return fista_gram_vmem(gb, cfg, interpret=interpret,
-                                   state0=state0, return_state=return_state)
-        if isinstance(state0, BatchState):
-            if backend == "kernel":
-                raise ValueError(
-                    "state0 is an XLA-driver BatchState; it cannot resume "
-                    "on backend='kernel'"
-                )
-            return fista_gram_batch(gb, cfg, state0=state0,
-                                    return_state=return_state)
+def _check_state(state0) -> None:
+    if not isinstance(state0, BatchState):
         raise TypeError(
-            f"state0 must be a ResidentSolveState, VmemSolveState, or "
-            f"BatchState, got {type(state0).__name__}"
+            f"state0 must be a BatchState, got {type(state0).__name__}"
         )
-    use_kernel, _ = _kernel_route(gb.dim, cfg, backend, interpret)
-    if use_kernel:
-        from ..kernels import fista_gram_vmem
 
-        return fista_gram_vmem(gb, cfg, interpret=interpret,
-                               return_state=return_state)
-    result = fista_gram_batch(gb, cfg, return_state=return_state)
-    return result
+
+def solve_gram_batch(gb, cfg=None, state0=None, return_state: bool = False):
+    """Solve a prebuilt ``GramBatch`` with the certified batched FISTA driver
+    (``fista_gram_batch``).
+
+    ``state0``/``return_state`` give checkpoint/resume: ``state0`` is the
+    ``BatchState`` a previous call returned, and the resumed run continues
+    its trajectory exactly (``max_iter`` counts the resumed iterations)."""
+    if cfg is None:
+        cfg = DEFAULT_CFG
+    if state0 is not None:
+        _check_state(state0)
+    return fista_gram_batch(gb, cfg, state0=state0, return_state=return_state)
 
 
 def solve_lasso_batch(
@@ -196,507 +82,172 @@ def solve_lasso_batch(
     alpha1,
     alpha2=0.0,
     cfg=None,
-    backend: str = "auto",
     feature_major: bool = False,
     key=None,
-    interpret: bool = False,
     state0=None,
     return_state: bool = False,
     mesh=None,
     mesh_axis: str | None = None,
 ):
-    """One call from raw ``(A, b, α)`` to certified batched lasso solutions,
-    routed to the fastest execution path the configuration supports.
+    """One call from raw ``(A, b, α)`` to certified batched lasso solutions.
 
-    This is the library surface behind the headline throughput
-    (RESULTS.md): bench.py calls exactly this function. Routing, in order:
+    The batched Gram precompute (``make_gram_batch``: Q = AᵀA, c = Aᵀb, bᵀb
+    and a per-instance power-iteration Lipschitz estimate, all at
+    ``Precision.HIGHEST``) feeds the lockstep FISTA driver
+    (``fista_gram_batch``), which stops once every instance's duality gap is
+    ≤ ``cfg.rel_gap_tol`` or ``cfg.max_iter`` is reached. bench.py and
+    chip_smoke.py call exactly this function.
 
-    - **Single-launch fused kernel** (kernels/fused_solve.py, the
-      software-pipelined overlap variant when its VMEM budget fits): the
-      whole certified pipeline in ONE pallas_call, the Gram never existing
-      in HBM — chosen when on TPU (or ``interpret``), the config certifies
-      in-kernel (any momentum mode; round 5: Armijo backtracking too, on
-      the plain variant), and n fits its budget.
-    - **Gram build**: otherwise, the fused one-pass Pallas kernel
-      (kernels/gram_build.py — generic over n to its ~88-feature VMEM
-      ceiling) when the kernel backend is selected; past the ceiling the
-      XLA einsum precompute (``make_gram_batch``, ``Precision.HIGHEST``).
-    - **Solve**: the kernel engine ``plan_gram_solve`` picks when on TPU
-      (or ``interpret``) and the config is kernel-supported (round 5: that
-      includes Armijo backtracking to n = 168) — the VMEM-resident burst
-      kernel to n ≈ 104 (47-49× the driver measured at n=96), the
-      single-DMA resident engine to the probe-calibrated n = 168 (44-63×;
-      armijo 70-75×; L estimated in-kernel so the XLA power loop never
-      runs), the Q-streaming engine beyond (3.2-3.4× at n=256-512);
-      otherwise the XLA driver (``fista_gram_batch`` — same math,
-      HBM-streamed; the measured fallback for past-window armijo).
+    ``feature_major``: inputs are ``A (n, m, B), b (m, B)``; otherwise
+    ``A (B, m, n), b (B, m)``. Returns a ``BatchResult`` (or
+    ``(result, state)`` with ``return_state``).
 
-    ``backend``: ``"auto"`` (route as above), ``"kernel"`` (force the Pallas
-    path; raises if unsupported), ``"xla"`` (force the driver).
-    ``feature_major``: inputs are ``A (n, m, B), b (m, B)`` (the framework's
-    native layout — avoids a transpose pass); otherwise ``A (B, m, n),
-    b (B, m)``. Returns a ``BatchResult`` (or ``(result, state)`` with
-    ``return_state``).
+    ``state0``/``return_state``: checkpoint/resume. ``state0`` is the
+    ``BatchState`` of an earlier call on the same ``(A, b, α)``; the Gram is
+    rebuilt deterministically from the inputs, so only the solver rows
+    round-trip. A checkpoint cut on a mesh resumes on one device and vice
+    versa (see ``_solve_lasso_batch_sharded``).
 
-    ``state0``/``return_state`` (round 5): checkpoint/resume through THIS
-    routed surface, on whichever engine the router picked. The engines
-    carry distinct state types — ``kernels.FusedSolveState`` (single-launch
-    fused), ``kernels.ResidentSolveState`` (the wide-window manual-DMA
-    engine), ``kernels.VmemSolveState`` (burst/qstream path), and
-    ``batch.fista_gram.BatchState`` (XLA driver) — and a non-None ``state0``
-    PINS the route to the engine that produced it: a checkpoint must resume
-    on the engine whose trajectory it holds (the engines' Lipschitz
-    estimates differ at the ULP level, which the armijo/greedy recurrences
-    amplify).
-
-    ``mesh`` (round 5): run THIS SAME routed surface per shard of a
-    ``jax.sharding.Mesh`` over the instance axis (``mesh_axis``, default
-    the framework's batch axis) — pure data parallelism via ``shard_map``,
-    zero inter-chip communication, with every routing guarantee above
-    (guard-deferred fallbacks, fused-vs-driver choice, ``backend=`` forcing)
-    applied inside each shard. This is the user-facing multi-chip entry;
-    kernels/pipeline.py keeps the hand-wired two-kernel pipeline for
-    comparison. Instances are zero-padded so each device's shard is a whole
-    number of lane tiles. Checkpoint/resume works over the mesh on the
-    per-lane-k engines — the FUSED single-launch kernel, and the RESIDENT
-    engine in the wide window (their state carries k per lane, so shards
-    evolve independently under one SPMD program; a mesh checkpoint's k
-    must stay uniform within the resuming layout's tiles, pre-validated
-    host-side); the scalar-k engines (qstream past the window, the XLA
-    driver) and forced ``backend='xla'`` refuse loudly — checkpoint those
-    per shard through the single-chip surface.
+    ``mesh``: run the same solve per shard of a ``jax.sharding.Mesh`` over
+    the instance axis (``mesh_axis``, default the framework's batch axis) —
+    data parallelism via ``shard_map``; the only communication is one
+    scalar all-reduce per step of the Lipschitz power iteration.
     """
+    if cfg is None:
+        cfg = DEFAULT_CFG
+    if state0 is not None:
+        _check_state(state0)
     if mesh is not None:
         return _solve_lasso_batch_sharded(
-            A, b, alpha1, alpha2, cfg, backend, feature_major, key,
-            interpret, mesh, mesh_axis, state0, return_state,
+            A, b, alpha1, alpha2, cfg, feature_major, key, mesh, mesh_axis,
+            state0, return_state,
         )
-    from .fista_gram import BatchFISTAConfig, fista_gram_batch, make_gram_batch
-
-    if cfg is None:
-        cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
-
-    n = A.shape[0] if feature_major else A.shape[-1]
-
-    if state0 is not None:
-        return _resume_lasso_batch(
-            A, b, alpha1, alpha2, cfg, backend, feature_major, key,
-            interpret, state0, return_state,
-        )
-
-    # Route BEFORE building the Gram: the decision uses only static
-    # shape/config info, and a doomed backend='kernel' call must not first
-    # spend O(B·m·n²) compute and a (n, n, B) HBM tensor on the precompute.
-    use_kernel, _ = _kernel_route(n, cfg, backend, interpret)
-
-    # Preferred kernel path: the single-launch fused build+solve kernel
-    # (kernels/fused_solve.py — the Gram never exists in HBM, no per-burst
-    # launches). Every momentum mode runs there, incl. adaptive restart,
-    # greedy, and (round 5) Armijo backtracking on the plain variant; its
-    # own guards decide, so routing cannot drift.
-    if use_kernel:
-        from ..kernels.fused_solve import (
-            _check_fused_cfg,
-            auto_tiles_fused,
-            solve_lasso_fused,
-        )
-
-        try:
-            _check_fused_cfg(cfg)
-            auto_tiles_fused(n, A.shape[1])
-        except (NotImplementedError, ValueError):
-            pass
-        else:
-            A_fm = A if feature_major else jnp.transpose(A, (2, 1, 0))
-            b_fm = b if feature_major else jnp.transpose(b, (1, 0))
-            return solve_lasso_fused(A_fm, b_fm, alpha1, alpha2, cfg=cfg,
-                                     interpret=interpret,
-                                     return_state=return_state)
-
-    # Resident mid-range engine (round 5, 104 < n ≤ 168): build WITHOUT the
-    # XLA power loop (it re-reads the wide Gram from HBM every step —
-    # measured ~75% of the build stage) and estimate L in-kernel against
-    # the resident block instead.
-    if use_kernel:
-        from ..kernels.fista_vmem import plan_gram_solve
-
-        if plan_gram_solve(n, cfg)[0] == "resident":
-            return _solve_resident_routed(A, b, alpha1, alpha2, cfg,
-                                          feature_major, key, interpret,
-                                          return_state=return_state)
-
-    # Gram build: the fused one-pass kernel is generic over n (round 4) up
-    # to its own VMEM ceiling (~90 features; _auto_tiles raises beyond);
-    # past that the XLA einsum precompute takes over regardless of the solve
-    # path. The kernel's own defaults ARE the measured-best headline
-    # configuration (RESULTS.md), so this routed path and bench.py run
-    # identical code. Shared with the resume dispatch so a resumed run
-    # rebuilds the bit-identical Gram.
-    gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,
-                            interpret, use_kernel)
-
-    if use_kernel:
-        from ..kernels import fista_gram_vmem
-
-        return fista_gram_vmem(gb, cfg, interpret=interpret,
-                               return_state=return_state)
-    return fista_gram_batch(gb, cfg, return_state=return_state)
+    gb = _build_gram(A, b, alpha1, alpha2, feature_major, key)
+    return fista_gram_batch(gb, cfg, state0=state0, return_state=return_state)
 
 
-def _solve_lasso_batch_sharded(A, b, alpha1, alpha2, cfg, backend,
-                               feature_major, key, interpret, mesh,
-                               mesh_axis, state0=None,
-                               return_state=False):
-    """Mesh-routed :func:`solve_lasso_batch`: the single-chip routed surface
-    runs PER SHARD inside ``shard_map`` (explicit, because XLA cannot
-    auto-partition a ``pallas_call``). Each device owns complete instances —
-    distribution is embarrassing, so the only cross-device work is the input
-    layout. Routing decisions are static Python made once at trace time and
-    identical on every shard.
+def _solve_lasso_batch_sharded(A, b, alpha1, alpha2, cfg, feature_major, key,
+                               mesh, mesh_axis, state0, return_state):
+    """Mesh-routed :func:`solve_lasso_batch`: the single-device solve runs
+    per shard inside ``shard_map``. Each device owns complete instances, so
+    the only cross-device work is the input layout. Instances are padded to
+    a multiple of the shard count with copies of the last instance (a real
+    problem that certifies like its original); the copies are sliced off.
 
-    Checkpoint/resume over the mesh rides the per-lane-k engines (the
-    FUSED single-launch kernel; the RESIDENT manual-DMA engine in the wide
-    window): their state is entirely per-lane (including ``k`` — each lane
-    tile exits at its own burst boundary), so shards evolve independently
-    under one SPMD program. The other engines carry a SCALAR iteration
-    counter that sizes a static burst schedule on the host — per-shard
-    counters would need per-shard programs, so mesh state on those engines
-    raises with a pointer to per-shard single-chip checkpointing."""
-    import jax
+    The power iteration's start vectors are the single-device ones, drawn
+    once for the whole batch and sharded with it, and its exit test spans
+    the shards (one scalar all-reduce per power step, the solve's only
+    communication), so every lane's L — and with it its trajectory — is the
+    one it has on one device.
+
+    Checkpoint/resume: each shard runs its own certification loop and stops
+    at its own iteration count ``k``. A shard that stops early has every
+    lane done, and every shard that still holds a live lane stops at the
+    same ``k`` (the first ``check_every`` multiple ≥ ``max_iter``). So the
+    largest per-shard ``k`` is exactly the count every live lane has run,
+    and the returned ``BatchState`` carries that one scalar: it has the
+    single-device layout and resumes on any mesh or on one device."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from ..parallel.mesh import BATCH_AXIS
-    from .fista_gram import BatchFISTAConfig
 
-    if cfg is None:
-        cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
     axis = BATCH_AXIS if mesh_axis is None else mesh_axis
     A_fm = A if feature_major else jnp.transpose(A, (2, 1, 0))
     b_fm = b if feature_major else jnp.transpose(b, (1, 0))
-    n, m, B_orig = A_fm.shape
-    n_dev = mesh.shape[axis]
+    n, _, B = A_fm.shape
+    pB = (-B) % mesh.shape[axis]
     dtype = A_fm.dtype
-    a1 = jnp.broadcast_to(jnp.asarray(alpha1, dtype), (B_orig,))
-    a2 = jnp.broadcast_to(jnp.asarray(alpha2, dtype), (B_orig,))
+    a1 = jnp.broadcast_to(jnp.asarray(alpha1, dtype), (B,))
+    a2 = jnp.broadcast_to(jnp.asarray(alpha2, dtype), (B,))
 
-    want_state = (state0 is not None) or return_state
-    state_engine = None
-    if want_state:
-        from ..kernels import FusedSolveState, ResidentSolveState
-        from ..kernels.fused_solve import _check_fused_cfg, auto_tiles_fused
-        from ..kernels.fista_vmem import plan_gram_solve
-
-        if backend not in ("auto", "kernel"):
-            # the mesh state path IS a per-lane-k Pallas engine; honoring
-            # backend='xla' here is impossible — refuse rather than
-            # silently overriding the user's forced driver
-            raise NotImplementedError(
-                f"mesh checkpoint/resume rides the per-lane-k kernel "
-                f"engines; it cannot honor backend={backend!r} — drop the "
-                "mesh or the backend forcing"
-            )
-        # pick the per-lane-k engine this config/shape lands on: fused
-        # single-launch first (the routed preference), the resident
-        # manual-DMA engine in the wide window; the scalar-k engines
-        # (qstream, driver) cannot vary their host-sized schedules per
-        # shard, so past-window configs refuse
-        try:
-            _kernel_route(n, cfg, "kernel", interpret)
-            try:
-                _check_fused_cfg(cfg)
-                auto_tiles_fused(n, m)
-                state_engine = "fused"
-            except (ValueError, NotImplementedError):
-                if plan_gram_solve(n, cfg)[0] != "resident":
-                    raise NotImplementedError(
-                        "this configuration lands on a scalar-k engine "
-                        "(the vmem burst kernel, qstream, or the XLA "
-                        "driver), whose host-sized burst schedule cannot "
-                        "differ per shard"
-                    )
-                state_engine = "resident"
-        except (ValueError, NotImplementedError) as e:
-            raise NotImplementedError(
-                "mesh-routed checkpoint/resume needs a per-lane-k engine "
-                f"(fused single-launch, or resident in the wide window); "
-                f"this configuration cannot run one: {e}"
-            ) from e
-        want_type = (FusedSolveState if state_engine == "fused"
-                     else ResidentSolveState)
-        if state0 is not None and not isinstance(state0, want_type):
-            raise NotImplementedError(
-                f"mesh-routed resume for this configuration rides the "
-                f"{state_engine} engine and carries {want_type.__name__}; "
-                f"got {type(state0).__name__} — resume it per shard through "
-                "the single-chip surface"
-            )
-
-    quantum = 128 * n_dev  # each shard a whole number of 128-lane tiles
-    pB = (-B_orig) % quantum
-    if pB:
-        A_fm = jnp.pad(A_fm, ((0, 0), (0, 0), (0, pB)))
-        b_fm = jnp.pad(b_fm, ((0, 0), (0, pB)))
-        a1 = jnp.pad(a1, (0, pB))
-        a2 = jnp.pad(a2, (0, pB))
-
-    state_args = ()
+    pad_lanes = functools.partial(_pad_lanes, pad=pB)
+    lane, plane = P(axis), P(None, axis)
+    state_spec = BatchState(X=plane, Y=plane, t=lane, prev_step=lane,
+                            done=lane, iters=lane, gap=lane, k=P(), tau=lane,
+                            first_step=lane)
+    result_spec = BatchResult(x=lane, iters=lane, rel_gap=lane,
+                              n_iters_total=lane, converged=lane,
+                              failed=lane)
+    key = jax.random.PRNGKey(0) if key is None else key
+    args = [pad_lanes(A_fm), pad_lanes(b_fm), pad_lanes(a1), pad_lanes(a2)]
+    specs = [P(None, None, axis), plane, lane, lane]
     if state0 is not None:
-        # Pre-validate per-lane k against THIS surface's per-shard tile
-        # grouping (inside shard_map the state is a tracer and the engine's
-        # own guard must skip): shard boundaries can split the grouping a
-        # single-chip checkpoint was cut under — e.g. a b_tile=1024
-        # checkpoint resumed over shards whose local tiles straddle two of
-        # the original tiles — which would silently misindex k.
-        import numpy as _np
-
-        Bl = (B_orig + pB) // n_dev
-        if state_engine == "fused":
-            from ..kernels.fused_solve import auto_tiles_fused as _atf
-
-            auto_bt = _atf(n, m)[0]
-        else:
-            from ..kernels.fista_vmem import SUBLANE, _round_up
-            from ..kernels.resident import auto_b_tile_resident
-
-            auto_bt = auto_b_tile_resident(
-                _round_up(max(n, SUBLANE), SUBLANE)
+        if state0.X.shape != (n, B):
+            raise ValueError(
+                f"state0 holds iterates of shape {state0.X.shape}; this call "
+                f"solves {(n, B)}"
             )
-        bt_shard = min(auto_bt, -(-Bl // 128) * 128)
-        kh = _np.asarray(jax.device_get(state0.k))
-        for d in range(n_dev):
-            for s0 in range(d * Bl, (d + 1) * Bl, bt_shard):
-                # clamp to the SHARD end too: when bt_shard doesn't divide
-                # Bl the shard's ragged last tile must not swallow the next
-                # shard's lanes (review r5 — that spuriously rejected
-                # same-layout checkpoints with heterogeneous per-shard k)
-                seg = kh[s0:min(s0 + bt_shard, (d + 1) * Bl, B_orig)]
-                if seg.size and (seg != seg[0]).any():
-                    raise ValueError(
-                        f"state0.k is not uniform within this mesh's lane "
-                        f"tile [{s0}, {s0 + bt_shard}) (shard {d}) — the "
-                        "checkpoint was cut under a different tile "
-                        "grouping; resume with the layout that produced it"
-                    )
-        pr = lambda x, v=0.0: (
-            jnp.pad(x, ((0, 0), (0, pB)), constant_values=v) if pB else x
-        )
-        pv = lambda x, v=0: (
-            jnp.pad(x, (0, pB), constant_values=v) if pB else x
-        )
-        state_args = (
-            pr(state0.X), pr(state0.Y), pr(state0.t, 1.0), pr(state0.ps),
-            pr(state0.tau, 1.0), pv(state0.k), pv(state0.done, True),
-            pv(state0.iters), pv(state0.gap),
-        )
+        padded = jax.tree.map(pad_lanes, state0._replace(k=None))
+        args.append(padded._replace(k=jnp.max(state0.k)))
+        specs.append(state_spec)
 
-    def local(A_blk, b_blk, a1_blk, a2_blk, *st_blks):
-        if want_state and state_engine == "fused":
-            from ..kernels import FusedSolveState
-            from ..kernels.fused_solve import solve_lasso_fused
-
-            st = FusedSolveState(*st_blks) if st_blks else None
-            res, fin = solve_lasso_fused(
-                A_blk, b_blk, a1_blk, a2_blk, cfg=cfg, interpret=interpret,
-                state0=st, return_state=True,
-            )
-        elif want_state:
-            # resident engine, via the SAME shared recipe as the fresh
-            # routed path (no power loop, in-kernel L) — identical floats
-            # to the mesh fresh solve
-            from ..kernels import ResidentSolveState
-
-            st = ResidentSolveState(*st_blks) if st_blks else None
-            res, fin = _solve_resident_routed(
-                A_blk, b_blk, a1_blk, a2_blk, cfg, True, key, interpret,
-                state0=st, return_state=True,
-            )
-        else:
-            res = solve_lasso_batch(
-                A_blk, b_blk, a1_blk, a2_blk, cfg=cfg, backend=backend,
-                feature_major=True, key=key, interpret=interpret,
-            )
-            fin = None
-        failed = (
-            res.failed if res.failed is not None
-            else jnp.zeros_like(res.converged)
-        )
-        out = (res.x, res.iters, res.rel_gap, res.converged, failed)
-        if want_state:
-            out = out + tuple(fin)
-        return out
-
-    vec = P(axis)
-    plane = P(None, axis)
-    state_out = (plane, plane, plane, plane, plane, vec, vec, vec, vec) \
-        if want_state else ()
-    fn = jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(P(None, None, axis), P(None, axis), vec, vec,
-                  *((plane,) * 5 + (vec,) * 4 if state0 is not None else ())),
-        out_specs=(vec, vec, vec, vec, vec, *state_out),
-        # purely local (no collectives); pallas_call outputs carry no
-        # varying-axes info, so skip the vma check
-        check_vma=False,
+    put = lambda x, s: jax.device_put(x, NamedSharding(mesh, s))
+    placed = tuple(
+        jax.tree.map(put, x, s, is_leaf=lambda v: isinstance(v, P))
+        for x, s in zip(args, specs)
     )
-    dev = lambda x, spec: jax.device_put(x, NamedSharding(mesh, spec))
-    st_dev = ()
-    if state0 is not None:
-        specs = (plane,) * 5 + (vec,) * 4
-        st_dev = tuple(dev(x, s) for x, s in zip(state_args, specs))
-    out = fn(
-        dev(A_fm, P(None, None, axis)), dev(b_fm, P(None, axis)),
-        dev(a1, vec), dev(a2, vec), *st_dev,
+    res, fin = _solve_shards(
+        placed, key, mesh=mesh, specs=tuple(specs), cfg=cfg,
+        out_specs=(result_spec, state_spec._replace(k=lane)), lanes=B,
     )
-    from ..kernels import FusedSolveState, ResidentSolveState
-    from .fista_gram import BatchResult
-
-    x, iters, gap, converged, failed = out[:5]
-    sl = slice(0, B_orig)
     result = BatchResult(
-        x=x[sl],
-        iters=iters[sl],
-        rel_gap=gap[sl],
-        n_iters_total=jnp.max(iters[sl]),
-        converged=converged[sl],
-        failed=failed[sl],
+        x=res.x[:B], iters=res.iters[:B], rel_gap=res.rel_gap[:B],
+        n_iters_total=jnp.max(res.n_iters_total), converged=res.converged[:B],
+        failed=res.failed[:B],
     )
-    if not want_state:
+    if not return_state:
         return result
-    Xf, Yf, tf, psf, tvf, kf, df, itf, gf = out[5:]
-    state_cls = (FusedSolveState if state_engine == "fused"
-                 else ResidentSolveState)
-    fin = state_cls(
-        X=Xf[:, sl], Y=Yf[:, sl], t=tf[:, sl], ps=psf[:, sl],
-        tau=tvf[:, sl], k=kf[sl], done=df[sl], iters=itf[sl], gap=gf[sl],
-    )
-    return (result, fin) if return_state else result
+    fin = jax.tree.map(lambda x: x[..., :B], fin._replace(k=None))._replace(k=jnp.max(fin.k))
+    return result, fin
 
 
-def _resume_lasso_batch(A, b, alpha1, alpha2, cfg, backend, feature_major,
-                        key, interpret, state0, return_state):
-    """Resume dispatch for :func:`solve_lasso_batch`: the state type pins
-    the engine (see the caller's docstring). The Gram-path engines rebuild
-    the Gram from the same ``(A, b)`` deterministically, so only the solver
-    rows need to round-trip."""
-    from ..kernels import FusedSolveState, ResidentSolveState, VmemSolveState
-    from .fista_gram import BatchState, fista_gram_batch
-
-    n = A.shape[0] if feature_major else A.shape[-1]
-    if isinstance(state0, ResidentSolveState):
-        if backend == "xla":
-            raise ValueError(
-                "state0 is a ResidentSolveState; it cannot resume on "
-                "backend='xla'"
-            )
-        _kernel_route(n, cfg, "kernel", interpret)
-        # mirror the fresh path exactly (shared helper): skip the XLA power
-        # loop and use the same in-kernel L estimate the checkpointed run
-        # derived τ from
-        return _solve_resident_routed(A, b, alpha1, alpha2, cfg,
-                                      feature_major, key, interpret,
-                                      state0=state0,
-                                      return_state=return_state)
-    if isinstance(state0, FusedSolveState):
-        if backend == "xla":
-            raise ValueError(
-                "state0 is a FusedSolveState; it cannot resume on "
-                "backend='xla' (the driver's trajectory differs)"
-            )
-        # the fused engine's own guards decide supportability; resuming a
-        # fused checkpoint on any other engine would silently change the
-        # trajectory, so failures raise rather than fall back
-        from ..kernels.fused_solve import solve_lasso_fused
-
-        _kernel_route(n, cfg, "kernel", interpret)  # raises off-TPU etc.
-        A_fm = A if feature_major else jnp.transpose(A, (2, 1, 0))
-        b_fm = b if feature_major else jnp.transpose(b, (1, 0))
-        return solve_lasso_fused(A_fm, b_fm, alpha1, alpha2, cfg=cfg,
-                                 interpret=interpret, state0=state0,
-                                 return_state=return_state)
-    if isinstance(state0, VmemSolveState):
-        if backend == "xla":
-            raise ValueError(
-                "state0 is a kernel-path VmemSolveState; it cannot resume "
-                "on backend='xla'"
-            )
-        from ..kernels import fista_gram_vmem
-
-        _kernel_route(n, cfg, "kernel", interpret)
-        gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,
-                                interpret, use_kernel=True)
-        return fista_gram_vmem(gb, cfg, interpret=interpret, state0=state0,
-                               return_state=return_state)
-    if isinstance(state0, BatchState):
-        if backend == "kernel":
-            raise ValueError(
-                "state0 is an XLA-driver BatchState; it cannot resume on "
-                "backend='kernel'"
-            )
-        gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,
-                                interpret, use_kernel=False)
-        return fista_gram_batch(gb, cfg, state0=state0,
-                                return_state=return_state)
-    raise TypeError(
-        f"state0 must be a FusedSolveState, ResidentSolveState, "
-        f"VmemSolveState, or BatchState; got {type(state0).__name__}"
-    )
+def _pad_lanes(x, pad):
+    """``x`` with its last (instance) axis padded by ``pad`` copies of the
+    last instance."""
+    if not pad:
+        return x
+    return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)], mode="edge")
 
 
-# In-kernel Lipschitz depth for the resident engine, used by EVERY routed
-# surface (fresh, resume, mesh local): a resumed trajectory's τ derives
-# from this estimate, so the value must be identical at checkpoint and
-# resume time — change it here or nowhere.
-_RESIDENT_EST_L_ITERS = 96
+@functools.partial(jax.jit, static_argnames=("mesh", "specs", "cfg",
+                                             "out_specs", "lanes"))
+def _solve_shards(args, key, *, mesh, specs, cfg, out_specs, lanes):
+    """The per-shard solve of :func:`_solve_lasso_batch_sharded` as one
+    compiled program per (shapes, mesh, config): an un-jitted ``shard_map``
+    would dispatch its body op by op on every call. The (n, ``lanes``)
+    start vectors drawn from ``key`` enter the shards padded and sharded
+    like the instances."""
+    A = args[0]
+    v0 = jax.random.normal(key, (A.shape[0], lanes), A.dtype)
+    args = args[:4] + (_pad_lanes(v0, A.shape[-1] - lanes),) + args[4:]
+    specs = specs[:4] + (specs[1],) + specs[4:]
+
+    def local(A_blk, b_blk, a1_blk, a2_blk, v0_blk, st=None):
+        gb = _build_gram(A_blk, b_blk, a1_blk, a2_blk, True, None, v0_blk,
+                         axis_name=mesh.axis_names)
+        res, fin = fista_gram_batch(gb, cfg, state0=st, return_state=True)
+        # each shard's loop count leaves as a (1,) leaf; reduced by the caller
+        return (res._replace(n_iters_total=res.n_iters_total[None]),
+                fin._replace(k=fin.k[None]))
+
+    return jax.shard_map(
+        local, mesh=mesh, in_specs=specs, out_specs=out_specs,
+        # no collectives; the loop carries start replicated and turn
+        # device-varying, which the varying-axes check would reject
+        check_vma=False,
+    )(*args)
 
 
-def _solve_resident_routed(A, b, alpha1, alpha2, cfg, feature_major, key,
-                           interpret, state0=None, return_state=False):
-    """The resident-window recipe shared by the fresh route, the resume
-    dispatch, and the mesh per-shard local: build the Gram WITHOUT the XLA
-    power loop (it re-reads the wide Gram from HBM every step) and estimate
-    L in-kernel against the resident block. One implementation so all three
-    call sites produce identical floats — the bit-exact resume contract
-    depends on it."""
-    from ..kernels import fista_gram_resident
-
-    gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,
-                            interpret, use_kernel=True, estimate_l=False)
-    return fista_gram_resident(gb, cfg, interpret=interpret,
-                               est_l_iters=_RESIDENT_EST_L_ITERS,
-                               state0=state0, return_state=return_state)
-
-
-def _build_gram_routed(A, b, alpha1, alpha2, feature_major, key, interpret,
-                       use_kernel, estimate_l=True):
-    """The Gram-precompute stage of :func:`solve_lasso_batch`, shared with
-    the resume dispatch (fused Pallas build where supported, XLA einsum
-    past its ceiling). ``estimate_l=False`` skips the XLA power loop — used
-    with the resident engine's in-kernel estimate."""
-    from .fista_gram import make_gram_batch
-
-    n = A.shape[0] if feature_major else A.shape[-1]
-    fused_build = False
-    if use_kernel:
-        from ..kernels.gram_build import _auto_tiles
-
-        try:
-            _auto_tiles(n, A.shape[1])
-            fused_build = True
-        except ValueError:
-            fused_build = False
-    if fused_build:
-        from ..kernels import make_gram_batch_fused
-
-        A_fm = A if feature_major else jnp.transpose(A, (2, 1, 0))
-        b_fm = b if feature_major else jnp.transpose(b, (1, 0))
-        return make_gram_batch_fused(A_fm, b_fm, alpha1, alpha2,
-                                     interpret=interpret)
+def _build_gram(A, b, alpha1, alpha2, feature_major, key, v0=None,
+                axis_name=None):
+    """The Gram-precompute stage of :func:`solve_lasso_batch`, shared by the
+    fresh, resumed and per-shard solves so that a resumed run rebuilds the
+    bit-identical Gram. Feature-major inputs are transposed to the
+    instance-major layout ``make_gram_batch`` contracts."""
     A_im = jnp.transpose(A, (2, 1, 0)) if feature_major else A
     b_im = jnp.transpose(b, (1, 0)) if feature_major else b
-    return make_gram_batch(A_im, b_im, alpha1, alpha2, key=key,
-                           estimate_l=estimate_l)
-
+    return make_gram_batch(A_im, b_im, alpha1, alpha2, key=key, v0=v0,
+                           axis_name=axis_name)
 
 def solve_batch(
     problem_batch,

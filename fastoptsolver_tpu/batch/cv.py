@@ -4,10 +4,10 @@ Model selection is the missing top of the reference's workflow: its notebook
 sweeps scenarios and plots convergence (SURVEY.md §3.5) but never selects a
 regularization strength. Here the full (folds × α-ladder) grid — plus the
 full-data refit path — solves as a single certified batched FISTA call
-(batch/fista_gram.py), so cross-validating 5 folds × 50 αs costs one kernel
-dispatch, not 250 solver runs.
+(batch/fista_gram.py), so cross-validating 5 folds × 50 αs costs one device
+program, not 250 solver runs.
 
-TPU-first tricks:
+Design:
 
 - **Gram subtraction**: each fold's *training* Gram is
   ``Q_train_j = AᵀA − A_jᵀA_j`` (and likewise for ``c``, ``bᵀb``) — one full
@@ -66,8 +66,7 @@ def _ladder(amax: Array, n_alphas: int, eps: float, dtype) -> Array:
 
 @functools.partial(
     jax.jit,
-    static_argnames=("k_folds", "n_alphas", "cfg", "one_se_rule", "l1_ratio",
-                     "backend"),
+    static_argnames=("k_folds", "n_alphas", "cfg", "one_se_rule", "l1_ratio"),
 )
 def _cv_core(
     A: Array,
@@ -80,7 +79,6 @@ def _cv_core(
     cfg: BatchFISTAConfig,
     one_se_rule: bool,
     l1_ratio: float = 1.0,
-    backend: str = "auto",
 ) -> CVResult:
     m, n = A.shape
     dtype = A.dtype
@@ -160,13 +158,7 @@ def _cv_core(
         alpha2=a2_grid,
         L=jnp.repeat(L_all, K) + a2_grid,
     )
-    # Route the (k+1)·K-instance grid to the VMEM kernel on TPU when the
-    # feature count and config allow (batch/api.py:solve_gram_batch) — the
-    # whole CV grid is exactly the batched-lasso shape the kernel was built
-    # for; the XLA driver remains the fallback.
-    from .api import solve_gram_batch
-
-    res = solve_gram_batch(gb, cfg, backend=backend)
+    res = fista_gram_batch(gb, cfg)
 
     X = res.x.reshape(k_folds + 1, K, n)
     X_folds, X_full = X[:k_folds], X[k_folds]
@@ -223,7 +215,6 @@ def cv_lasso(
     fit_intercept: bool = False,
     dtype=jnp.float32,
     l1_ratio: float = 1.0,
-    backend: str = "auto",
 ) -> CVResult:
     """Cross-validated lasso (elastic-net with ``alpha2 > 0`` for a fixed
     extra ridge, or ``l1_ratio < 1`` for a ladder-tied elastic-net grid —
@@ -255,7 +246,7 @@ def cv_lasso(
         raise ValueError(f"l1_ratio must be in (0, 1], got {l1_ratio}")
     res = _cv_core(
         A, b, alphas, k_folds, n_alphas, eps, alpha2, cfg, one_se_rule,
-        l1_ratio=float(l1_ratio), backend=backend,
+        l1_ratio=float(l1_ratio),
     )
     if fit_intercept:
         res = res._replace(intercept=mu_b - mu_A @ res.coef)

@@ -1,20 +1,18 @@
 """Hand-batched Gram-form FISTA: thousands of lasso instances per compiled step.
 
-This is the throughput path behind the BASELINE.json north star (≥10⁴ batched
-lasso instances solved to 1e-6 relative gap per second per chip). Design, in
-order of importance:
+This is the throughput path behind ``solve_lasso_batch`` (batch/api.py):
+many small lasso instances, each certified to a relative duality gap.
+Design, in order of importance:
 
 1. **Gram precompute.** Each instance's gradient is ``Qx − c`` with
    ``Q = AᵀA (n×n), c = Aᵀb`` — O(n²) per iteration instead of the
    reference's two O(mn) matvecs (iterative_solvers.py:173). The precompute
-   itself is one big batched matmul (MXU); iterations never touch A again.
+   itself is one big batched contraction; iterations never touch A again.
 
-2. **Feature-major layout.** State is stored ``(n, B)`` and Q ``(n, n, B)``:
-   the instance axis lives on TPU *lanes*, so one FISTA iteration for the
-   whole batch is n² fused multiply-adds of (B,)-wide vectors on the VPU —
-   no tiny per-instance matmuls, no layout changes. This is also exactly the
-   layout the Pallas fused kernel uses (kernels/fista_vmem.py), which keeps
-   the whole state resident in VMEM across iterations.
+2. **Feature-major layout.** State is stored ``(n, B)`` and Q ``(n, n, B)``
+   with the instance axis last, so one FISTA iteration for the whole batch
+   is n² elementwise multiply-adds of (B,)-wide vectors — no tiny
+   per-instance matmuls, no layout changes between iterations.
 
 3. **Lockstep iterations, masked convergence.** All instances advance
    together; every ``check_every`` iterations a duality-gap check
@@ -34,11 +32,11 @@ from jax import Array
 
 from ..ops.prox import soft_threshold
 
-# Every Q·x in the iteration/certification path must be true f32: the TPU MXU
-# default truncates f32 operands to bf16, which floors the achievable duality
-# gap at ~4e-2 once XLA routes the contraction to the MXU (wide n). The
-# package __init__ sets the global default, but these einsums define the
-# solver's correctness, so they pin it explicitly.
+# Every Q·x in the iteration/certification path must be true f32: a reduced-
+# precision matmul default (bf16 passes, or TF32 on a GPU's tensor cores,
+# ~1e-3 relative error) floors the achievable duality gap far above a 1e-6
+# certificate. The package __init__ sets the global default, but these
+# einsums define the solver's correctness, so they pin it explicitly.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -63,9 +61,14 @@ class GramBatch:
         return self.Q.shape[0]
 
 
-def _batched_power_L(Q: Array, v0: Array, n_iter: int, tol: float) -> Array:
+def _batched_power_L(Q: Array, v0: Array, n_iter: int, tol: float,
+                     axis_name: str | tuple[str, ...] | None = None) -> Array:
     """Per-lane power iteration on (n, n, B) Gram tensors: λ_max(Q) per
-    instance, all instances in lockstep on the VPU."""
+    instance, all instances in lockstep until the last one settles.
+
+    ``axis_name``: called per shard inside ``shard_map`` over the instance
+    axis, the exit test spans every shard, so each lane takes as many
+    steps — and gets the same L — as it does on one device."""
 
     def norm(v):
         return jnp.sqrt(jnp.sum(v * v, axis=0))
@@ -79,7 +82,10 @@ def _batched_power_L(Q: Array, v0: Array, n_iter: int, tol: float) -> Array:
         k: Array
 
     def cond(s: S):
-        return (s.k < n_iter) & jnp.any(jnp.abs(s.L - s.prev) >= tol)
+        moving = jnp.any(jnp.abs(s.L - s.prev) >= tol)
+        if axis_name is not None:
+            moving = jax.lax.psum(moving.astype(jnp.int32), axis_name) > 0
+        return (s.k < n_iter) & moving
 
     def body(s: S):
         w = jnp.einsum("ijb,jb->ib", Q, s.v, precision=_HI)
@@ -105,40 +111,34 @@ def make_gram_batch(
     power_iters: int = 100,
     power_tol: float = 1e-6,
     dtype=None,
-    estimate_l: bool = True,
+    v0: Array | None = None,
+    axis_name: str | tuple[str, ...] | None = None,
 ) -> GramBatch:
     """Batched Gram precompute + per-instance Lipschitz estimation.
 
     ``alpha1``/``alpha2`` may be scalars or (B,) arrays (per-instance
-    regularization sweeps vmap naturally).
-
-    ``estimate_l=False`` skips the power iteration and fills ``L`` with a
-    1.0 sentinel — for solvers that estimate L themselves against a
-    VMEM-resident block (``kernels.fista_gram_resident(est_l_iters=…)``);
-    at wide n the XLA power loop re-reads the (n, n, B) Gram from HBM every
-    step and dominates the build stage (RESULTS.md round 5).
+    regularization sweeps vmap naturally). ``v0`` (n, B): the power
+    iteration's start vectors; by default drawn from ``key``.
+    ``axis_name``: see :func:`_batched_power_L`.
     """
     if dtype is not None:
         A = A.astype(dtype)
         b = b.astype(dtype)
     B = A.shape[0]
-    # HIGHEST precision: on TPU the default MXU matmul truncates operands to
-    # bf16 (~2e-3 relative error on Gram entries — measured vs the f32 fused
-    # kernel by bench/verify_tpu.py). The Gram is built once and then defines
-    # the problem every iteration certifies against, so it must be true f32.
+    # HIGHEST precision: a reduced-precision matmul default (bf16 passes,
+    # TF32) leaves ~1e-3 relative error on Gram entries. The Gram is built
+    # once and then defines the problem every iteration certifies against,
+    # so it must be true f32.
     hi = jax.lax.Precision.HIGHEST
     Q = jnp.einsum("bmi,bmj->ijb", A, A, precision=hi)
     c = jnp.einsum("bmi,bm->ib", A, b, precision=hi)
     btb = jnp.einsum("bm,bm->b", b, b, precision=hi)
     a1 = jnp.broadcast_to(jnp.asarray(alpha1, A.dtype), (B,))
     a2 = jnp.broadcast_to(jnp.asarray(alpha2, A.dtype), (B,))
-    if estimate_l:
-        if key is None:
-            key = jax.random.PRNGKey(0)
+    if v0 is None:
+        key = jax.random.PRNGKey(0) if key is None else key
         v0 = jax.random.normal(key, (A.shape[2], B), A.dtype)
-        L = _batched_power_L(Q, v0, power_iters, power_tol) + a2
-    else:
-        L = jnp.ones((B,), A.dtype)
+    L = _batched_power_L(Q, v0, power_iters, power_tol, axis_name) + a2
     return GramBatch(Q=Q, c=c, btb=btb, alpha1=a1, alpha2=a2, L=L)
 
 

@@ -9,8 +9,8 @@ a shared ladder, instances are the (problem, α) cross product.
 
 ``warm_start=True`` additionally runs a quick sequential pass: αs sorted
 descending, each solve initialized from the previous solution (the textbook
-homotopy schedule). The batched mode is usually faster on TPU (everything in
-one call beats k dependent calls at ~ms dispatch each); warm-start mode
+homotopy schedule). The batched mode is usually faster on an accelerator
+(everything in one call beats k dependent calls, each a dispatch and a sync); warm-start mode
 exists for very long ladders / very tight tolerances.
 """
 from __future__ import annotations

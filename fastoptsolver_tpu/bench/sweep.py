@@ -187,18 +187,19 @@ def main(argv=None):
     ap.add_argument("--pdf", action="store_true", help="also save PDFs like the reference")
     ap.add_argument(
         "--f32", action="store_true",
-        help="solve in float32 (TPU-native); default is float64 so the "
+        help="solve in float32 (as the accelerator path does); default is "
+        "float64 so the "
         "suboptimality curves resolve the reference's 1e-7 floors",
     )
     ap.add_argument(
-        "--tpu", action="store_true",
-        help="run on the default (TPU) platform; by default the sweep forces "
-        "CPU — it is an analysis artifact and must not contend for the one "
-        "real chip (see CLAUDE.md)",
+        "--default-platform", action="store_true",
+        help="run on JAX's default platform (the GPU where there is one); by "
+        "default the sweep forces the CPU — it is an analysis artifact and "
+        "must not hold a card another process needs",
     )
     args = ap.parse_args(argv)
 
-    if not args.tpu:
+    if not args.default_platform:
         jax.config.update("jax_platforms", "cpu")
     dtype = jnp.float32
     if not args.f32:

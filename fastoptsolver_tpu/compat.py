@@ -7,7 +7,7 @@ generate_correlated_boston_like_data, reset_metrics, get_metrics`` and keep
 their notebook code unchanged — every function keeps the reference's
 signature, defaults, history format, and documented quirks
 (SURVEY.md §7 behavioral contract), while executing as compiled JAX
-underneath (on TPU when available).
+underneath (on the GPU when one is available).
 
 Differences, all deliberate and documented:
 

@@ -1,4 +1,4 @@
-"""sklearn-style estimator façade: fit / predict / score over the TPU stack.
+"""sklearn-style estimator façade: fit / predict / score over the solver stack.
 
 The reference exposes one sklearn-ish class (``LBFGSSolver`` with ``fit`` —
 /root/reference/lbfgs.py:7-73, mirrored in compat.py). This module rounds

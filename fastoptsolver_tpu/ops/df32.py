@@ -1,4 +1,4 @@
-"""Double-word float32 ("df32") compensated arithmetic for TPU.
+"""Double-word float32 ("df32") compensated arithmetic.
 
 Why this exists: the Gram-form residual ``rr = xᵀQx − 2cᵀx + bᵀb`` cancels
 catastrophically when ‖Ax−b‖² ≪ bᵀb (the large-m lasso regime the streaming
@@ -6,10 +6,10 @@ path targets — problems/streaming.py). In plain f32 the duality-gap
 evaluation (solvers/gram_dense.py) then floors around ``2⁻²⁴·bᵀb/f`` relative
 gap and can spuriously certify (the negative-cancellation clamp) or never
 certify. ``jax_enable_x64`` is a process-global flag production code cannot
-assume, and true f64 is emulated on TPU anyway.
+assume, and f64 runs at a small fraction of the f32 rate on the GPU.
 
 df32 carries (value, error) pairs through the critical reductions, giving
-≈48 effective mantissa bits from plain f32 VPU ops. The reductions are
+≈48 effective mantissa bits from plain f32 elementwise ops. The reductions are
 blocked (lane-wide carries, tree-combined tails) so the scans stay short: a
 length-n dot runs ⌈n/128⌉ sequential steps, the (n, n) matvec ⌈n/8⌉ steps of
 (n,)-wide vector work.
@@ -32,7 +32,8 @@ Knuth's two-sum is valid for any round-to-nearest result —
 Rump & Oishi 2005, "Accurate sum and dot product").
 
 Validated against NumPy float64 in tests/test_df32.py, including the
-adversarial rr-cancellation regime, and on real TPU by bench/verify_tpu.py.
+adversarial rr-cancellation regime, and compiled for the GPU by
+chip_smoke.py's ``df32`` phase (the GPU compiler contracts ``a*b+c`` into FMA).
 
 Remaining floor (documented, not hidden): the *stored* (Q, c, bᵀb) triple is
 itself f32-rounded, so it is only consistent with a genuine Gram to one
@@ -194,7 +195,7 @@ def dot2_df(u: Array, vh: Array, vl: Array, block: int = 128) -> tuple[Array, Ar
 def matvec2(Q: Array, x: Array, block: int = 8) -> tuple[Array, Array]:
     """Compensated matrix-vector product: (wh, wl) ≈ Qx with per-component
     error ~2⁻⁴⁸·Σⱼ|Qᵢⱼxⱼ|. Scans column blocks with (n,)-wide carries, so
-    sequential depth is ⌈n/block⌉ while each step is full-width VPU work."""
+    sequential depth is ⌈n/block⌉ while each step is full-width vector work."""
     n = Q.shape[0]
     ncols = Q.shape[1]
     r = (-ncols) % block

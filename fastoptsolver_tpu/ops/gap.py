@@ -14,7 +14,7 @@ residual gives the certificate. With ``r = Ax − b`` and smooth gradient
     gap(x) = f(x) + ½‖s·r‖² + s·rᵀb + ½α₂‖s·x‖²    (α₂ ≥ 0)
 
 is an upper bound on ``f(x) − f*``. Everything is computable in Gram form
-(``‖r‖² = xᵀQx − 2cᵀx + bᵀb``, ``rᵀb = cᵀx − bᵀb``), so the batched VMEM
+(``‖r‖² = xᵀQx − 2cᵀx + bᵀb``, ``rᵀb = cᵀx − bᵀb``), so the batched Gram
 solver never needs A or b.
 """
 from __future__ import annotations

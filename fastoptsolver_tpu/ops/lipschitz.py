@@ -1,6 +1,6 @@
 """Lipschitz-constant estimation via power iteration, as a compiled fixed-point.
 
-TPU-native redesign of the reference's ``estimate_lipschitz``
+A compiled redesign of the reference's ``estimate_lipschitz``
 (``/root/reference/iterative_solvers.py:45-60``): same recurrence
 (``w = AᵀAv; L = ||w||; v = w/L``, 100 iterations, tol 1e-6 on |L−prev|) but
 

@@ -1,6 +1,6 @@
 """Proximal operators.
 
-TPU-native equivalents of the reference's prox operators
+Compiled equivalents of the reference's prox operators
 (``/root/reference/prox_operators.py:3-16``), written as pure ``jnp``
 functions: elementwise, fully fusable by XLA, and trivially vmappable over
 stacked instance batches (the value *and* the threshold may both be batched).
@@ -70,7 +70,7 @@ def prox_zero(v: Array, tau: Array = 0.0) -> Array:
 def isotonic_regression(w: Array, increasing: bool = True) -> Array:
     """Euclidean projection of ``w`` (1-D) onto the monotone cone.
 
-    TPU-native formulation: instead of the sequential pool-adjacent-violators
+    Array formulation: instead of the sequential pool-adjacent-violators
     stack (data-dependent control flow — hostile to XLA), this evaluates the
     classic minimax characterization of the isotonic fit,
 
@@ -78,7 +78,7 @@ def isotonic_regression(w: Array, increasing: bool = True) -> Array:
 
     as three dense O(n²) array ops (prefix-sum outer difference, cumulative
     max, reversed cumulative min) — no data-dependent shapes, vmappable,
-    everything on the VPU. O(n²) memory: intended for the n ≤ a-few-thousand
+    all elementwise and scan work. O(n²) memory: intended for the n ≤ a-few-thousand
     coefficient vectors of this problem class, not megapoint curves.
 
     Not in the reference; foundation for the SLOPE prox (``prox_slope``).

@@ -14,7 +14,7 @@ average) — strictly less traffic than the distributed-FISTA path, and the
 local x-update is an n×n matmul pair that never touches the interconnect.
 This is the classic "splitting across examples" consensus form (Boyd et al.
 2011, §8.2), mapped onto a ``jax.sharding.Mesh`` axis with ``shard_map``; XLA
-lowers the psum to an ICI all-reduce on hardware.
+lowers the psum to an all-reduce over the cards' interconnect (NVLink).
 
 Iteration (scaled-dual form; all steps device-local except the psum):
 

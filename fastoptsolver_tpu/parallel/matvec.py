@@ -15,7 +15,8 @@ The sharding recipe (SURVEY.md §2 table, §7 'Hard parts'):
   sharded to fit.
 
 Collectives are expressed inside ``shard_map`` so the communication pattern
-is explicit and testable; XLA lowers the psum to ICI all-reduce on hardware.
+is explicit and testable; XLA lowers the psum to an all-reduce over the
+cards' interconnect (NVLink between GPUs).
 """
 from __future__ import annotations
 

@@ -7,11 +7,12 @@ This framework scales along two axes:
   across chips (zero communication except the convergence all-reduce);
 - ``"model"`` — problem parallelism: one large design matrix row- or
   column-sharded across chips, with psum-reduced distributed matvecs
-  (parallel/matvec.py). On hardware, lay this axis over ICI.
+  (parallel/matvec.py). On hardware, keep this axis within one host's
+  NVLink-connected cards.
 
 Mesh creation is the one place device topology enters; everything else takes
 ``(mesh, axis_name)`` and works identically on a CPU-simulated mesh
-(``--xla_force_host_platform_device_count``) and a real TPU slice.
+(``--xla_force_host_platform_device_count``) and real GPUs.
 """
 from __future__ import annotations
 

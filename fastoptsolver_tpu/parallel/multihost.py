@@ -1,23 +1,25 @@
-"""Multi-host (DCN × ICI) distribution: bootstrap, hybrid meshes, and
+"""Multi-host distribution: bootstrap, hybrid meshes, and
 process-local data assembly.
 
 The reference is single-process (SURVEY.md §2 "Parallelism: none" —
 `/root/reference/iterative_solvers.py:1-6` imports nothing but numpy/scipy).
-This module is the framework's cross-host layer, the TPU-native analogue of
-an NCCL/MPI bootstrap: `jax.distributed.initialize` wires processes into one
-JAX runtime, after which XLA owns the transport — collectives ride ICI within
-a host's slice and DCN across hosts, chosen by how the mesh is laid out.
+This module is the framework's cross-host layer, in place of an NCCL/MPI
+bootstrap: `jax.distributed.initialize` wires processes into one JAX
+runtime, after which XLA owns the transport — collectives ride the in-host
+interconnect (NVLink between a host's GPUs) within a host and the network
+across hosts, chosen by how the mesh is laid out.
 
 Design rules (jax-ml.github.io/scaling-book):
 
-- The **host axis is DCN** — put the low-traffic parallelism there. For this
+- The **host axis is the network** — put the low-traffic parallelism there. For this
   framework that is instance parallelism (independent problem batches; the
   only cross-host traffic is the convergence all-reduce of one scalar) or
   consensus ADMM (one n-vector psum per iteration).
-- The **chip axis is ICI** — put the per-iteration matvec psums
+- The **chip axis is the in-host interconnect** — put the per-iteration
+  matvec psums
   (parallel/matvec.py) there.
 
-Everything below works identically on a real multi-host slice and on a
+Everything below works identically on a real multi-host cluster and on a
 multi-process CPU simulation (two processes with
 ``--xla_force_host_platform_device_count=K`` each — SURVEY.md §4
 "distributed without a cluster"); tests/test_multihost.py runs the latter.
@@ -49,7 +51,7 @@ def initialize(
 
     Arguments fall back to ``FASTOPT_COORDINATOR`` / ``FASTOPT_NUM_PROCESSES``
     / ``FASTOPT_PROCESS_ID`` env vars, and from there to JAX's own automatic
-    cluster detection (TPU metadata server, SLURM, …). A process that is not
+    cluster detection (SLURM, …). A process that is not
     part of any cluster (no args, no env) is left alone — single-process JAX
     keeps working, so library code can call this unconditionally.
     """
@@ -80,12 +82,14 @@ def make_host_chip_mesh(
     chip_axis: str = CHIP_AXIS,
 ) -> Mesh:
     """Build a ``(host, chip)`` mesh whose leading axis crosses process
-    boundaries (DCN) and whose trailing axis stays within a process (ICI).
+    boundaries (the network) and whose trailing axis stays within a process
+    (the in-host interconnect).
 
     Multi-process: devices are grouped by ``process_index`` so each mesh row
-    is exactly one host's devices — a psum over ``host_axis`` crosses DCN, a
-    psum over ``chip_axis`` stays on ICI. Single-process (CPU simulation, the
-    driver's virtual mesh, or one real chip): the device list is split into
+    is exactly one host's devices — a psum over ``host_axis`` crosses the
+    network, a psum over ``chip_axis`` stays within the host. Single-process
+    (CPU simulation, a virtual mesh, or one host's cards): the device list is
+    split into
     ``hosts`` equal groups so the same two-axis programs run unchanged.
     """
     devices = list(jax.devices()) if devices is None else list(devices)
@@ -122,7 +126,7 @@ def make_host_chip_mesh(
 
 
 def host_sharded(mesh: Mesh, axis: str = HOST_AXIS) -> NamedSharding:
-    """Leading-dim sharding over the host (DCN) axis."""
+    """Leading-dim sharding over the host (cross-process) axis."""
     return NamedSharding(mesh, P(axis))
 
 

@@ -62,7 +62,7 @@ def fold_alphas(
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class CustomProblem:
-    """Fully generic problem from user-supplied closures — the TPU-native
+    """Fully generic problem from user-supplied closures — the compiled
     equivalent of the reference ISTA's injectable-callable API
     (iterative_solvers.py:65-70). The callables are static pytree metadata, so
     a ``CustomProblem`` still jits/vmaps over its array leaves (captured inside

@@ -161,9 +161,8 @@ def generate_scenario_batch_fm(
 ) -> tuple[Array, Array, Array]:
     """Feature-leading variant of :func:`generate_scenario_batch`: returns
     ``(A, b, x_true)`` with ``A`` of shape (5, m, batch) and ``b`` (m, batch)
-    — the native layout of the fused Gram-build kernel
-    (kernels/gram_build.py), written directly at generation time so no
-    transpose pass over the (GB-scale) design tensor is ever needed.
+    — the framework's feature-major layout (batch/fista_gram.py), written
+    directly at generation time.
 
     Same distribution as the batch-major generator (and the reference's
     easy_boston_data.py:23-45 recipe); the draw ORDER differs, so per-seed

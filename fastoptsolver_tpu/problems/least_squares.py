@@ -15,8 +15,8 @@ Two representations, same protocol:
   ``Q = AᵀA, c = Aᵀb, btb = bᵀb``: gradient is ``Qx − c`` — O(n²) per
   iteration instead of O(mn). Mathematically identical (``AᵀAx − Aᵀb =
   Aᵀ(Ax−b)``), and the key to the batched-instances throughput target: for
-  thousands of small (m×n, n≈5..64) instances the whole iteration state fits
-  in VMEM and never touches A again. No analogue in the reference (which
+  thousands of small (m×n, n≈5..64) instances the iteration state is a few
+  bytes per instance and never touches A again. No analogue in the reference (which
   recomputes both matvecs every iteration).
 
 Both forms fold the ridge term into the smooth part and use plain soft
@@ -123,8 +123,8 @@ class LeastSquares:
         return jnp.zeros(self.dim, dtype=self.A.dtype)
 
     def to_gram(self) -> "GramLeastSquares":
-        """Precompute the normal-equation form. One (n×m)@(m×n) matmul —
-        MXU-friendly, done once outside the solver loop."""
+        """Precompute the normal-equation form. One (n×m)@(m×n) matmul,
+        done once outside the solver loop."""
         if self.en_prox:
             raise NotImplementedError(
                 "Gram form folds the ridge term into the smooth part; use "

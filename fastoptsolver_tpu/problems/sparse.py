@@ -7,16 +7,16 @@ very large design matrices the dense matvec wastes bandwidth on zeros;
 problem protocol (problems/base.py) is the only contract, so ISTA / FISTA /
 FISTA-Δ / OWL-QN / ADMM-via-Gram work unchanged.
 
-TPU notes:
+Accelerator notes:
 
-- BCOO matvecs lower to gather/scatter (segment sums), which run on the TPU
-  but do not use the MXU; they win over dense once density drops well below
-  the ratio of gather to FMA throughput (≈ a few %). For mid-density
-  matrices on TPU, prefer the dense path — it is bandwidth-bound at the HBM
-  roofline (bench/large_lasso.py).
+- BCOO matvecs lower to gather/scatter (segment sums), which do not use the
+  matrix units; they win over dense once density drops well below the ratio
+  of gather to FMA throughput (≈ a few %). For mid-density matrices prefer
+  the dense path — it is bound by memory bandwidth (bench/large_lasso.py).
+  How XLA:GPU lowers the BCOO matvec is not measured yet.
 - ``to_gram()`` densifies the (n × n) Gram product: for n up to a few
-  thousand that is exactly the fast path (iterations become dense n²
-  VPU/MXU work and never touch the sparse structure again) — the sparse
+  thousand that is exactly the fast path (iterations become dense n² work
+  and never touch the sparse structure again) — the sparse
   structure only pays for the one-time O(nnz·n) precompute.
 - The Lipschitz constant comes from the operator-form power iteration
   (ops/lipschitz.py works on closures, no dense A needed).

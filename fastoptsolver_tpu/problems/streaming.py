@@ -1,13 +1,12 @@
-"""Out-of-HBM design matrices: one-pass streaming Gram reduction.
+"""Design matrices larger than device memory: one-pass streaming Gram.
 
-The north star names A up to 1e6×1e4 — 40 GB f32, larger than one chip's
-HBM (SURVEY.md §5: problem-size scaling is this domain's long-context
-equivalent). The CUDA-style answer would chunk the per-iteration matvec
+SURVEY.md §5: problem-size scaling is this domain's long-context
+equivalent. The obvious answer would chunk the per-iteration matvec
 ``Aᵀ(Ay − b)`` (reference ``iterative_solvers.py:173``) and re-stream A from
-host every iteration — paying PCIe/DCN bandwidth × iterations. The TPU-native
-answer streams A exactly ONCE: the composite objective only ever touches A
+the host every iteration — paying PCIe bandwidth × iterations. This module
+streams A exactly ONCE: the composite objective only ever touches A
 through ``Q = AᵀA`` (n×n), ``c = Aᵀb`` and ``bᵀb``, so a single chunked pass
-accumulates those on device (MXU matmuls at HIGHEST precision, double-buffered
+accumulates those on device (matmuls at HIGHEST precision, double-buffered
 host→device transfers), and the certified FISTA then runs entirely on-device
 at O(n²)/iteration, independent of m. For n = 1e4, Q is 400 MB — 100× smaller
 than A; m is unbounded by device memory (chunks may come from RAM, np.memmap,
@@ -62,7 +61,7 @@ def _accum(Q, Qc, c, cc, btb, bc, m, A_i, b_i):
     """One chunk's contribution. Donated accumulators — Q is updated in
     place on device (one Q ever resident, not 2Q); in-flight prefetched
     chunks add to the envelope (see ``stream_gram``)."""
-    hi = jax.lax.Precision.HIGHEST  # MXU default would truncate to bf16
+    hi = jax.lax.Precision.HIGHEST  # a TF32 default would lose ~1e-3
     Q, Qc = _kahan(Q, Qc, jnp.matmul(A_i.T, A_i, precision=hi))
     c, cc = _kahan(c, cc, jnp.matmul(A_i.T, b_i, precision=hi))
     btb, bc = _kahan(btb, bc, jnp.vdot(b_i, b_i))
@@ -82,7 +81,7 @@ def stream_gram(
     to the on-device Gram form in one streaming pass.
 
     Transfers are double-buffered: up to ``prefetch`` chunks are enqueued with
-    ``jax.device_put`` (async on TPU) while the MXU reduces the current one,
+    ``jax.device_put`` (asynchronous) while the device reduces the current one,
     so the pass runs at min(link bandwidth, matmul throughput). Peak HBM is
     Q + ``prefetch`` chunks. Chunks may have different row counts (each
     distinct mᵢ compiles once — keep chunk sizes uniform apart from the
@@ -147,14 +146,14 @@ def merge_grams(local: DenseGram, mesh, axis: str | tuple = "host") -> DenseGram
     summed with one ``psum``-shaped collective — the complete multi-host
     answer to the north star's 1e6×1e4 A: 40 GB of rows split across hosts,
     each streamed once locally, merged by a single (n², n, 1)-sized
-    all-reduce over DCN. The merged Gram is replicated, so the subsequent
+    all-reduce across hosts. The merged Gram is replicated, so the subsequent
     O(n²)/iter solve (solvers/gram_dense.py) runs identically everywhere
     with zero further communication.
 
     ``local`` holds this process's partial reduction. Works on a real
     multi-host slice and on a single-process mesh alike: each participant's
     partial is placed on the mesh and summed under jit (XLA lowers the sum of
-    per-host shards to the DCN collective).
+    per-host shards to the cross-host collective).
     """
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P

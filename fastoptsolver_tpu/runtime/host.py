@@ -8,7 +8,7 @@ compiles it on demand with the repo's Makefile (g++, no external deps).
 The loader is the framework's data-plane runtime: host threads generate and
 Gram-precompute scenario batch *i+1* (C++, all cores) while the device solves
 batch *i* — the classic prefetching input pipeline, sized so host generation
-(~memory-bandwidth-bound) overlaps the TPU solve entirely.
+(~memory-bandwidth-bound) overlaps the device solve entirely.
 """
 from __future__ import annotations
 

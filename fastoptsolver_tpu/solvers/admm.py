@@ -15,11 +15,11 @@ non-negativity, box — problems/base.py). Iteration:
     z⁺ = prox_{h/ρ}(ẑ + u)
     u⁺ = u + ẑ − z⁺
 
-TPU-first design choices:
+Design choices:
 
 - **Eigendecomposition instead of Cholesky.** The x-update linear system is
   solved through a one-time symmetric eigendecomposition ``Q + α₂I = VΛVᵀ``:
-  every iteration is then two n×n matmuls (MXU-friendly, no triangular
+  every iteration is then two n×n matmuls (no triangular
   solves, no data-dependent pivoting), and — the real win — **adaptive ρ is
   free**: changing ρ only changes the diagonal ``1/(λᵢ+ρ)``, so residual
   balancing never triggers a re-factorization (a Cholesky-based ADMM pays
@@ -109,7 +109,7 @@ def admm(problem, config: ADMMConfig = ADMMConfig(), x0: Array | None = None) ->
     dtype = Q.dtype
 
     # One-time O(n³) factorization; every iteration (and every ρ change)
-    # afterwards is O(n²) matmul work on the MXU.
+    # afterwards is O(n²) matmul work.
     lam, V = jnp.linalg.eigh(Q)
 
     def x_update(rhs: Array, rho: Array) -> Array:

@@ -9,7 +9,7 @@ Design notes (vs. the reference):
   solver state pytree**: every instance of a vmapped batch gets its own
   metrics, and wall-clock attribution comes from ``jax.profiler`` traces
   around the compiled solve instead of ``time.perf_counter`` pairs around
-  individual NumPy calls (which would force host sync every iteration on TPU).
+  individual NumPy calls (which would force a host sync every iteration).
 
 - The Armijo backtracking line search (reference ``iterative_solvers.py:92-108``,
   ``:183-197``) is an inner ``lax.while_loop``: sufficient-decrease test

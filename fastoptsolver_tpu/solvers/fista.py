@@ -1,6 +1,6 @@
 """FISTA / FISTA-Δ: accelerated proximal gradient as a compiled fixed-point.
 
-TPU-native redesign of the reference solvers
+A compiled redesign of the reference solvers
 (``/root/reference/iterative_solvers.py:132-245`` (FISTA) and ``:251-344``
 (FISTA-Δ)): one immutable :class:`FISTAState` pytree advanced by a
 ``lax.while_loop`` (or a fixed-length ``lax.scan`` when an iteration history

@@ -17,13 +17,13 @@ Splitting ``z = Dx`` (Boyd et al., Distributed Optimization §6.4):
     z⁺ = soft_threshold(ẑ + u, α₁·w/ρ)           # per-row weights w
     u⁺ = u + ẑ − z⁺
 
-TPU-first design (same rationale as solvers/admm.py):
+Design (same rationale as solvers/admm.py):
 
 - The x-update system matrix ``M = AᵀA + α₂I + ρDᵀD`` is fixed (ρ is kept
   constant — adaptive ρ would change M *non-uniformly* through the ρDᵀD
   term, forcing an O(n³) refactorization per rebalance), so one symmetric
   eigendecomposition ``M = VΛVᵀ`` up front turns every iteration into pure
-  matmuls (MXU) + a diagonal scale (VPU): no triangular solves, no pivoting,
+  matmuls + a diagonal scale: no triangular solves, no pivoting,
   no data-dependent control flow.
 - The loop is a ``lax.while_loop`` over an immutable state pytree — one XLA
   program per solve, `jax.vmap`-batchable over stacked (A, b, D) instances.

@@ -3,20 +3,20 @@
 Companion to :mod:`fastoptsolver_tpu.problems.streaming`: once an
 arbitrarily-tall A has been reduced to ``Q = AᵀA (n, n), c = Aᵀb, bᵀb`` in a
 single streaming pass, the solve never touches A again — each iteration is
-one (n, n) MXU matvec plus VPU shrinkage, with the duality-gap certification
+one (n, n) matvec plus elementwise shrinkage, with the duality-gap certification
 (ops/gap.py math, Gram-form) every ``check_every`` iterations inside one
 ``lax.while_loop`` — a single device program, no host round-trips.
 
 This is the single-instance sibling of batch/fista_gram.py (whose
-feature-major (n, n, B) layout is wrong for B=1: a unit minor dimension pads
-to a full 128-lane tile on TPU, inflating Q by 128×). Recurrence parity:
+feature-major (n, n, B) layout is wrong for B=1: a unit minor dimension turns
+every matvec into n² scalar products instead of one matrix-vector product). Recurrence parity:
 the fixed-step FISTA of ``/root/reference/iterative_solvers.py:170-221``
 with Nesterov momentum and optional adaptive restart (``:209-217``).
 
 f32 certification floor: the Gram-form residual ``xᵀQx − 2cᵀx + bᵀb``
 cancels catastrophically when ‖Ax−b‖² ≪ bᵀb, so the gap is evaluated with
 df32 compensated arithmetic (ops/df32.py — ~48 effective mantissa bits from
-plain f32 VPU ops, no dependence on the process-global x64 flag; cheap:
+plain f32 ops, no dependence on the process-global x64 flag; cheap:
 O(n²) once per ``check_every`` iterations) — without this, rel_gap_tol below
 ~1e-5 is unreachable at large m.
 """

@@ -1,6 +1,6 @@
 """ISTA: proximal gradient descent as a compiled fixed-point.
 
-TPU-native redesign of the reference's generic-callable ISTA
+A compiled redesign of the reference's generic-callable ISTA
 (``/root/reference/iterative_solvers.py:65-125``). The injectable-closure API
 (``g`` / ``grad_g`` / ``prox_h`` + precomputed ``L``) is subsumed by the
 problem protocol: pass any problem pytree (including

@@ -1,7 +1,7 @@
 """L-BFGS, from scratch, in pure JAX — no SciPy, no Fortran.
 
 The reference wraps SciPy's Fortran L-BFGS-B behind a Python⇄Fortran boundary
-(``/root/reference/lbfgs.py:64-70``), which cannot run on TPU, jit, vmap, or
+(``/root/reference/lbfgs.py:64-70``), which cannot run on a GPU, jit, vmap, or
 shard. This is a ground-up reimplementation as a single compiled fixed-point:
 
 - **two-loop recursion** over a fixed-size curvature-pair ring buffer — the

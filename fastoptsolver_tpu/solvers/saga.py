@@ -16,8 +16,8 @@ prox_{η·h/m}. Minibatch update (ids B):
     x   ← prox(x − ηv, η/m)
     s   ← s + A_Bᵀ(r_B − φ_B);   φ_B ← r_B
 
-TPU-first design mirrors svrg.py: permuted-minibatch epochs (static-shape
-row gathers → MXU matmuls), the whole run one compiled program
+The design mirrors svrg.py: permuted-minibatch epochs (static-shape
+row gathers → matmuls), the whole run one compiled program
 (`lax.scan` over epochs and steps), early exit by freezing the carry.
 
 Reference citation: no stochastic solver exists in the reference; the

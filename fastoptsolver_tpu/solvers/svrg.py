@@ -8,11 +8,11 @@ of the full-gradient method.
     inner t:  v = ∇g_B(x) − ∇g_B(x̃) + μ      (minibatch B, 4 small matvecs)
               x ← prox_{ηh}(x − ηv)
 
-TPU-first design (vs. the textbook sampled-index loop):
+Design (vs. the textbook sampled-index loop):
 
 - **Permuted-minibatch epochs**: indices are one `jax.random.permutation`
   per epoch reshaped to (steps, batch) — every inner step is a *static-shape*
-  row gather + (batch × n) matmul on the MXU; no per-step host RNG, no
+  row gather + (batch × n) matmul; no per-step host RNG, no
   dynamic shapes.
 - The whole optimization is ONE compiled program: `lax.scan` over epochs,
   `lax.scan` over the minibatches inside, PRNG key threaded through the
@@ -100,7 +100,7 @@ def prox_svrg(
             x_snap = state.x
 
             def inner(x: Array, ids: Array) -> tuple[Array, None]:
-                Ab = A[ids]  # (batch, n) gather — static shape, MXU matmuls
+                Ab = A[ids]  # (batch, n) gather — static shape, matmuls
                 r_x = Ab @ x - b[ids]
                 r_s = Ab @ x_snap - b[ids]
                 v = scale * (Ab.T @ (r_x - r_s)) + mu + a2 * (x - x_snap)

@@ -5,10 +5,10 @@ in-memory history lists). This framework's solver states are immutable
 pytrees, so checkpointing is generic: flatten any state (``FISTAState``,
 ``LBFGSState``, a ``GramBatch``, a batched ``SolveResult``…) to one ``.npz``
 plus a structure manifest, and restore it into an example pytree of the same
-structure. Long batched solves resume exactly: ``fista_gram_batch`` /
-``fista_gram_vmem`` accept a saved ``BatchState`` via warm-start parameters,
-and the momentum table is reconstructable from the saved iteration counter
-(kernels/fista_vmem.py:momentum_betas).
+structure. Long batched solves resume exactly: ``fista_gram_batch``,
+``solve_gram_batch`` and ``solve_lasso_batch`` (on one device or a mesh)
+accept a saved ``BatchState`` as ``state0``; the state carries every
+per-instance row the recurrence needs (momentum, step, iteration counter).
 
 Format: ``<path>.npz`` holding leaves keyed ``leaf_000…``; structure is
 validated on restore (leaf count + shapes), so mismatched checkpoints fail

@@ -3,7 +3,7 @@
 The reference's only observability is module-global wall-time lists around
 individual NumPy calls (``/root/reference/iterative_solvers.py:16-40``) —
 meaningless under XLA, where the whole solve is one fused program and any
-host-side timer forces a device sync. The TPU-native replacements:
+host-side timer forces a device sync. The compiled-world replacements:
 
 - :func:`trace` — ``jax.profiler`` trace context; open the dump in
   TensorBoard/XProf for per-op device timelines (the real per-kernel story).
@@ -26,7 +26,7 @@ import jax
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """``with trace("/tmp/jax-trace"): solve(...)`` → profile dump for
+    """``with trace("traces/solve"): solve(...)`` → profile dump for
     TensorBoard / XProf."""
     jax.profiler.start_trace(log_dir)
     try:
@@ -37,7 +37,8 @@ def trace(log_dir: str):
 
 def timed(fn: Callable[..., Any], *args, repeats: int = 3, warmup: int = 1):
     """Run ``fn(*args)`` with warmup (compile) excluded; returns
-    ``(last_output, stats_dict)`` with mean/min wall seconds."""
+    ``(last_output, stats_dict)`` with mean/median/min/max wall seconds and
+    every repeat's time, each ended by ``block_until_ready``."""
     out = None
     for _ in range(max(warmup, 0)):
         out = jax.block_until_ready(fn(*args))
@@ -48,9 +49,11 @@ def timed(fn: Callable[..., Any], *args, repeats: int = 3, warmup: int = 1):
         times.append(time.perf_counter() - t0)
     return out, {
         "mean_s": float(np.mean(times)),
+        "median_s": float(np.median(times)),
         "min_s": float(np.min(times)),
         "max_s": float(np.max(times)),
         "repeats": len(times),
+        "times_s": times,
     }
 
 

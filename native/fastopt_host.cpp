@@ -1,6 +1,6 @@
 // fastopt_host: native host-side runtime for fastoptsolver_tpu.
 //
-// The TPU owns the solver math (JAX/XLA/Pallas); this library owns the
+// The accelerator owns the solver math (JAX/XLA); this library owns the
 // host-side data plane around it — the role BLAS/Fortran play under the
 // reference's NumPy/SciPy stack (SURVEY.md §2 "Native components"), rebuilt
 // as a standalone C++ runtime:

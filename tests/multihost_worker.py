@@ -4,8 +4,8 @@ Run as ``python tests/multihost_worker.py <process_id> <num_processes> <port>``
 with ``XLA_FLAGS=--xla_force_host_platform_device_count=K``. Two of these
 processes form a 2-host × K-chip mesh over the gloo-backed CPU distributed
 runtime: psums over the "host" axis cross a real process boundary (the
-simulated-DCN path), psums over "chip" stay in-process (the simulated-ICI
-path). The reference has no analogue (single-process NumPy,
+simulated cross-host path), psums over "chip" stay in-process (the simulated
+in-host interconnect). The reference has no analogue (single-process NumPy,
 /root/reference/iterative_solvers.py:1-6); this pins SURVEY.md §4's
 "distributed without a cluster" strategy for the multi-host half.
 
@@ -17,12 +17,13 @@ import sys
 
 import jax
 
-# jax is preloaded pinned to the TPU platform; flip to CPU before any backend
-# touch (same dance as tests/conftest.py), and reuse the suite's compile cache.
+# CPU only, whatever accelerator is visible (as tests/conftest.py), and the
+# compile cache where the one rule puts it.
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/fos_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+
+from fastoptsolver_tpu.utils.compile_cache import configure_compile_cache
+
+configure_compile_cache()
 
 import numpy as np
 
@@ -59,7 +60,7 @@ def main(pid: int, nproc: int, port: int) -> None:
     )
 
     # 1) Row-sharded FISTA with A split over (host, chip) jointly: the fused
-    #    gradient's psum reduces over ICI and DCN in one collective.
+    #    gradient's psum reduces over both axes in one collective.
     dist = DistributedLeastSquares.create(
         A, b, mesh, "lasso", 0.5, 0.0,
         axis=(multihost.HOST_AXIS, multihost.CHIP_AXIS), layout="row",
@@ -68,7 +69,7 @@ def main(pid: int, nproc: int, port: int) -> None:
     np.testing.assert_allclose(x_dist, local_ref, rtol=1e-5, atol=1e-6)
 
     # 2) Consensus ADMM with row blocks owned per-host (one n-vector psum per
-    #    iteration crossing DCN).
+    #    iteration crossing the process boundary).
     res = consensus_admm(
         A, b, mesh, "lasso", 0.5, 0.0,
         config=ADMMConfig(max_iter=600), axis=multihost.HOST_AXIS,
@@ -101,7 +102,7 @@ def main(pid: int, nproc: int, port: int) -> None:
 
     # 4) Multi-host streaming Gram (north-star 1e6×1e4 story): each host
     #    streams only ITS OWN rows; one psum-shaped all-reduce of the n²
-    #    partials over DCN yields the replicated Gram, and the dense
+    #    partials across processes yields the replicated Gram, and the dense
     #    certified solve then runs with zero further communication.
     from fastoptsolver_tpu.problems import chunk_rows, merge_grams, stream_gram
     from fastoptsolver_tpu.solvers import DenseGramConfig, fista_gram_dense

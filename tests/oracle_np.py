@@ -89,9 +89,15 @@ def fista_np(
     A, b, a1, a2, L,
     backtracking=False, eta=0.5, t_init_factor=1.0, max_iter=500,
     tol=0.0, tol_ratio=0.0, adaptive_restart=False, restart_threshold=1.0,
-    delta=None,
+    delta=None, greedy=False, greedy_xi=1.3, greedy_S=1.02,
+    greedy_shrink=0.96,
 ):
-    """FISTA (delta=None) or FISTA-Δ (delta > 2) trajectory.
+    """FISTA (delta=None), FISTA-Δ (delta > 2) or greedy FISTA trajectory.
+
+    ``greedy``: Liang & Schönlieb's greedy FISTA as the batched driver
+    states it per step (batch/fista_gram.py): step ξ/L, unit momentum, a
+    restart when ⟨y − x⁺, x⁺ − x⟩ ≥ 0, and τ shrunk toward 1/L on a restart
+    or once a step outgrows S·‖x₁ − x₀‖.
 
     Returns (x, trace) where trace logs post-update iterates and objectives.
     """
@@ -101,7 +107,8 @@ def fista_np(
     y = x.copy()
     x_prev = x.copy()
     t_mom = 1.0
-    tau = t_init_factor / L
+    tau = (greedy_xi if greedy else t_init_factor) / L
+    first_step = 0.0
     trace = {"x": [], "obj": [], "step": [], "n_iters": 0}
     for k in range(1, max_iter + 1):
         grad = dg(y)
@@ -116,7 +123,13 @@ def fista_np(
         prev_step = np.linalg.norm(x - x_prev)
         ratio = this_step / prev_step if prev_step > 0 else np.inf
 
-        if delta is not None:
+        if greedy:
+            restart = (y - x_next) @ (x_next - x) >= 0.0
+            y = x_next.copy() if restart else 2.0 * x_next - x
+            first_step = this_step if first_step == 0.0 else first_step
+            if restart or this_step > greedy_S * first_step:
+                tau = max(greedy_shrink * tau, 1.0 / L)
+        elif delta is not None:
             theta = k / (k + 1 + delta)
             y = x_next + theta * (x_next - x)
         elif adaptive_restart and ratio > restart_threshold:

@@ -343,8 +343,9 @@ def _routed_inputs(B=192, m=256, n=5, seed=11):
 
 
 def test_solve_lasso_batch_xla_and_kernel_agree():
-    """The routed surface must give the same certified answers whichever
-    execution path it picks (kernel forced via interpret on CPU CI)."""
+    """The one-call surface is exactly the Gram precompute plus the driver
+    (the XLA path is the only execution path), and every instance
+    certifies."""
     from fastoptsolver_tpu.batch import solve_lasso_batch
     from fastoptsolver_tpu.batch.fista_gram import BatchFISTAConfig
 
@@ -353,13 +354,11 @@ def test_solve_lasso_batch_xla_and_kernel_agree():
     # the f32 Gram-form gap-evaluation floor (~1.1e-6) — converged but not
     # certifiable tighter in f32 (the df32/f64 gap path exists for that)
     cfg = BatchFISTAConfig(max_iter=2000, check_every=25, rel_gap_tol=5e-6)
-    res_x = solve_lasso_batch(A, b, a1, cfg=cfg, backend="xla")
-    res_k = solve_lasso_batch(A, b, a1, cfg=cfg, backend="kernel",
-                              interpret=True)
-    assert bool(np.asarray(res_x.converged).all())
-    assert bool(np.asarray(res_k.converged).all())
-    np.testing.assert_allclose(np.asarray(res_k.x), np.asarray(res_x.x),
-                               rtol=2e-4, atol=2e-5)
+    res = solve_lasso_batch(A, b, a1, cfg=cfg)
+    ref = fista_gram_batch(make_gram_batch(A, b, a1, 0.0), cfg)
+    assert bool(np.asarray(res.converged).all())
+    np.testing.assert_array_equal(np.asarray(res.x), np.asarray(ref.x))
+    np.testing.assert_array_equal(np.asarray(res.iters), np.asarray(ref.iters))
 
 
 def test_solve_lasso_batch_feature_major_matches_instance_major():
@@ -368,83 +367,62 @@ def test_solve_lasso_batch_feature_major_matches_instance_major():
 
     A, b, a1 = _routed_inputs()
     cfg = BatchFISTAConfig(max_iter=600, check_every=25, rel_gap_tol=5e-6)
-    res_im = solve_lasso_batch(A, b, a1, cfg=cfg, backend="kernel",
-                               interpret=True)
+    res_im = solve_lasso_batch(A, b, a1, cfg=cfg)
     res_fm = solve_lasso_batch(jnp.transpose(A, (2, 1, 0)),
                                jnp.transpose(b, (1, 0)), a1, cfg=cfg,
-                               backend="kernel", feature_major=True,
-                               interpret=True)
+                               feature_major=True)
     np.testing.assert_allclose(np.asarray(res_fm.x), np.asarray(res_im.x),
                                rtol=1e-5, atol=1e-6)
 
 
 def test_solve_lasso_batch_routing_guards():
+    """Every configuration runs on the one driver path: Armijo backtracking
+    and FISTA-Δ with adaptive restart both go through; the removed engine
+    options fail loudly as unknown keywords instead of being ignored; a
+    state of the wrong type is refused."""
     import pytest
 
     from fastoptsolver_tpu.batch import solve_lasso_batch
     from fastoptsolver_tpu.batch.fista_gram import BatchFISTAConfig
 
     A, b, a1 = _routed_inputs(B=64, m=256, n=5)
-    # round 5: backtracking runs IN-KERNEL (the last XLA-only config,
-    # r4 verdict item 1) — backend="kernel" off-TPU still raises the
-    # clear not-on-TPU diagnosis, and with interpret=True it RUNS on the
-    # kernel path; full certification is not asserted — reference Armijo
-    # semantics (smooth-only test, never-growing τ) stall on many
-    # scenarios, pinned as the reference's own behavior by
-    # tests/test_sweep.py::test_armijo_stall_matches_reference_oracle
+    # reference Armijo semantics (smooth-only test, never-growing τ) stall
+    # on many scenarios, so only finiteness is asserted — pinned as the
+    # reference's own behaviour by tests/test_batch_oracle_grid.py
     btcfg = BatchFISTAConfig(max_iter=200, check_every=25, rel_gap_tol=5e-6,
                              backtracking=True)
-    with pytest.raises(ValueError, match="not on TPU"):
-        solve_lasso_batch(A, b, a1, cfg=btcfg, backend="kernel")
-    res = solve_lasso_batch(A, b, a1, cfg=btcfg, backend="kernel",
-                            interpret=True)
-    assert np.isfinite(np.asarray(res.rel_gap)).all()
-    res = solve_lasso_batch(A, b, a1, cfg=btcfg, backend="auto")
+    res = solve_lasso_batch(A, b, a1, cfg=btcfg)
     assert np.isfinite(np.asarray(res.rel_gap)).all()
     assert int(res.n_iters_total) > 0
-    # round 5: beyond the VMEM-resident ceiling the kernel backend now
-    # routes to the resident manual-DMA engine (≲160, certified) and the
-    # Q-streaming engine beyond (tests/test_resident.py,
-    # tests/test_qstream.py) — the remaining hard refusal is
-    # past-window n + backtracking (a trial search would need a
-    # data-dependent number of Q streams)
     rng = np.random.default_rng(0)
     Aw = jnp.asarray(rng.normal(size=(8, 16, 256)), jnp.float32)
     bw = jnp.asarray(rng.normal(size=(8, 16)), jnp.float32)
-    with pytest.raises(ValueError, match="not on TPU"):
-        solve_lasso_batch(Aw, bw, 0.5, backend="kernel")  # supported now
-    with pytest.raises(ValueError, match="XLA driver"):
-        solve_lasso_batch(Aw, bw, 0.5, cfg=btcfg, backend="kernel",
-                          interpret=True)
-    # off-TPU without interpret: the router must fail with its clear
-    # diagnosis instead of letting Mosaic lowering die deep inside Pallas
-    # with a cryptic backend error (r3 advisor finding)
-    with pytest.raises(ValueError, match="not on TPU"):
-        solve_lasso_batch(A, b, a1, backend="kernel")
-    with pytest.raises(ValueError, match="backend"):
-        solve_lasso_batch(A, b, a1, backend="bogus")
-    # configs the kernel's entry guard rejects for OTHER reasons than
-    # backtracking (adaptive restart with non-nesterov momentum) must also
-    # route to the driver under auto — not crash in the kernel (regression:
-    # the first router only mirrored the backtracking constraint)
+    res_w = solve_lasso_batch(Aw, bw, 0.5, cfg=btcfg)  # n > m, wide
+    assert res_w.x.shape == (8, 256)
+    assert np.isfinite(np.asarray(res_w.rel_gap)).all()
+    for removed in ({"backend": "kernel"}, {"interpret": True}):
+        with pytest.raises(TypeError):
+            solve_lasso_batch(A, b, a1, **removed)
+    with pytest.raises(TypeError, match="BatchState"):
+        solve_lasso_batch(A, b, a1, state0=object())
     dcfg = BatchFISTAConfig(max_iter=600, check_every=25, rel_gap_tol=5e-6,
                             momentum="delta", delta=3.0,
                             adaptive_restart=True)
-    res_d = solve_lasso_batch(A, b, a1, cfg=dcfg, backend="auto",
-                              interpret=True)  # interpret would pick kernel
+    res_d = solve_lasso_batch(A, b, a1, cfg=dcfg)
     assert np.isfinite(np.asarray(res_d.rel_gap)).all()
-    with pytest.raises(ValueError, match="nesterov"):
-        solve_lasso_batch(A, b, a1, cfg=dcfg, backend="kernel",
-                          interpret=True)
 
 
 def test_solve_gram_batch_resume_routes_by_state_type():
-    """Checkpoint/resume through the routed surface: a state pins the route
-    to the engine that produced it (the two paths carry different state
-    types); cross-engine resumes fail loudly."""
+    """Checkpoint/resume through the Gram surface: straight == split +
+    resume; a state cut by ``solve_lasso_batch`` resumes here too (one
+    state type for every path); anything else is refused."""
     import pytest
 
-    from fastoptsolver_tpu.batch import make_gram_batch, solve_gram_batch
+    from fastoptsolver_tpu.batch import (
+        make_gram_batch,
+        solve_gram_batch,
+        solve_lasso_batch,
+    )
     from fastoptsolver_tpu.batch.fista_gram import BatchFISTAConfig
 
     rng = np.random.default_rng(5)
@@ -456,25 +434,16 @@ def test_solve_gram_batch_resume_routes_by_state_type():
     half = BatchFISTAConfig(max_iter=40, check_every=0)
     full = BatchFISTAConfig(max_iter=100, check_every=0)
 
-    # kernel path: straight == split+resume, bit-exact
-    straight_k = solve_gram_batch(gb, full, backend="kernel", interpret=True)
-    _, mid_k = solve_gram_batch(gb, half, backend="kernel", interpret=True,
-                                return_state=True)
-    res_k = solve_gram_batch(gb, full, interpret=True, state0=mid_k)
-    np.testing.assert_array_equal(np.asarray(res_k.x), np.asarray(straight_k.x))
-
-    # driver path: same contract
-    straight_x = solve_gram_batch(gb, full, backend="xla")
-    _, mid_x = solve_gram_batch(gb, half, backend="xla", return_state=True)
-    res_x = solve_gram_batch(gb, full, state0=mid_x)
-    np.testing.assert_allclose(np.asarray(res_x.x), np.asarray(straight_x.x),
+    straight = solve_gram_batch(gb, full)
+    _, mid = solve_gram_batch(gb, half, return_state=True)
+    res = solve_gram_batch(gb, full, state0=mid)
+    np.testing.assert_allclose(np.asarray(res.x), np.asarray(straight.x),
                                rtol=1e-12, atol=1e-14)
 
-    # cross-engine resumes fail loudly
-    with pytest.raises(ValueError, match="VmemSolveState"):
-        solve_gram_batch(gb, full, backend="xla", state0=mid_k)
-    with pytest.raises(ValueError, match="BatchState"):
-        solve_gram_batch(gb, full, backend="kernel", state0=mid_x,
-                         interpret=True)
+    _, mid_l = solve_lasso_batch(A, b, a1, cfg=half, return_state=True)
+    res_l = solve_gram_batch(gb, full, state0=mid_l)
+    np.testing.assert_allclose(np.asarray(res_l.x), np.asarray(straight.x),
+                               rtol=1e-12, atol=1e-14)
+
     with pytest.raises(TypeError, match="state0"):
         solve_gram_batch(gb, full, state0=object())

@@ -146,6 +146,36 @@ def test_jax_scenario_batch_statistics():
     np.testing.assert_allclose(corr, 0.8, atol=0.05)
 
 
+def test_feature_major_generator_distribution_parity():
+    import jax
+    from fastoptsolver_tpu.problems import (
+        generate_scenario_batch,
+        generate_scenario_batch_fm,
+    )
+
+    key = jax.random.PRNGKey(0)
+    B, m = 512, 400
+    A1, b1, xt1 = generate_scenario_batch(key, B, m=m, noise_std=1.0, rho1=0.5, rho2=0.7)
+    A2, b2, xt2 = generate_scenario_batch_fm(key, B, m=m, noise_std=1.0, rho1=0.5, rho2=0.7)
+    assert A2.shape == (5, m, B) and b2.shape == (m, B)
+    np.testing.assert_array_equal(np.asarray(xt1), np.asarray(xt2))
+    # distributional parity: feature means/stds and within-block correlation
+    m1 = np.asarray(A1).reshape(-1, 5).mean(0)
+    m2 = np.asarray(A2).transpose(1, 2, 0).reshape(-1, 5).mean(0)
+    np.testing.assert_allclose(m1, m2, rtol=0.02, atol=0.05)
+    s1 = np.asarray(A1).reshape(-1, 5).std(0)
+    s2 = np.asarray(A2).transpose(1, 2, 0).reshape(-1, 5).std(0)
+    np.testing.assert_allclose(s1, s2, rtol=0.05)
+    flat1 = np.asarray(A1).reshape(-1, 5)
+    flat2 = np.asarray(A2).transpose(1, 2, 0).reshape(-1, 5)
+    c1 = np.corrcoef(flat1[:, 0], flat1[:, 1])[0, 1]
+    c2 = np.corrcoef(flat2[:, 0], flat2[:, 1])[0, 1]
+    np.testing.assert_allclose(c1, c2, atol=0.05)
+    # b = A @ x_true + noise in both layouts
+    r2 = np.asarray(b2) - np.einsum("nmb,n->mb", np.asarray(A2), np.asarray(xt2))
+    assert abs(r2.std() - 1.0) < 0.05
+
+
 def test_en_prox_variant_same_minimizer():
     """en_prox=True (ridge in nonsmooth part + elastic-net prox) and the
     default folded form converge to the same minimizer."""

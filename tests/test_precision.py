@@ -1,14 +1,14 @@
 """The package must pin f32 matmul precision at import.
 
-On TPU the MXU default truncates f32 matmul operands to bf16 (~4e-3 relative
-error). Measured on a v5e (bench/verify_tpu.py wide_n checks, round 3): the
-batched FISTA driver's Q·x gradient silently dropped to bf16 once n was wide
-enough for XLA to route the contraction to the MXU (n ≥ ~64), flooring the
-true duality gap at ~4e-2 while the solver "ran" for 2000 iterations. A
-certification library cannot run on that default, so fastoptsolver_tpu's
-__init__ sets jax_default_matmul_precision="highest" (overridable via
-FOS_MATMUL_PRECISION). CPU CI cannot reproduce the numerical failure — this
-pins the configuration instead.
+XLA's default f32 matmul precision on an accelerator may run in reduced
+precision — TF32 on a GPU's tensor cores, ~1e-3 relative error — which
+floors the achievable duality gap far above a 1e-6 certificate once a
+contraction is wide enough to go to the matrix units. A certification
+library cannot run on that default, so fastoptsolver_tpu's __init__ sets
+jax_default_matmul_precision="highest" (overridable via
+FOS_MATMUL_PRECISION). The CPU cannot reproduce the numerical failure — this
+pins the configuration; chip_smoke.py's ``precision`` phase checks it on the
+GPU (an f32 4096² matmul at f32 accuracy, not TF32's).
 """
 import os
 

@@ -1,6 +1,6 @@
 """Distributed matvec + distributed solve on the 8-device CPU mesh.
 
-Identical code runs on a real TPU slice; here the mesh is simulated via
+Identical code runs on real GPUs; here the mesh is simulated via
 --xla_force_host_platform_device_count=8 (conftest.py)."""
 import numpy as np
 import jax

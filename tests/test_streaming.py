@@ -1,5 +1,5 @@
 """Streaming Gram reduction + dense certified FISTA (problems/streaming.py,
-solvers/gram_dense.py) — the out-of-HBM path for the north star's
+solvers/gram_dense.py) — the path for designs larger than device memory, the
 1e6×1e4-scale A (SURVEY.md §5 problem-size scaling)."""
 import numpy as np
 import pytest

@@ -80,3 +80,62 @@ def test_timed_and_solver_stats():
     assert s["grad_num_calls"] == 30
     assert s["ls_num_calls"] == 30
     assert s["backtracks_per_ls"] >= 0
+
+
+# ---------------------------------------------------------------------------
+# process environment: the compile-cache rule and a backend-free import
+# ---------------------------------------------------------------------------
+
+import os as _os
+import subprocess as _sp
+import sys as _sys
+from pathlib import Path as _Path
+
+import pytest as _pytest
+
+_ROOT = _Path(__file__).resolve().parents[1]
+
+
+def _fresh_python(code: str, **env) -> str:
+    """Run ``code`` in a new CPU-only interpreter (configuring the cache or
+    initializing a backend here would leak into the rest of this worker)."""
+    full = {k: v for k, v in _os.environ.items()
+            if k != "JAX_COMPILATION_CACHE_DIR"}
+    full.update(JAX_PLATFORMS="cpu", PYTHONPATH=str(_ROOT), **env)
+    out = _sp.run([_sys.executable, "-c", code], env=full, cwd=_ROOT,
+                  capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return out.stdout.strip()
+
+
+@_pytest.mark.parametrize("env_dir", [None, "custom"])
+def test_compile_cache_rule(env_dir, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the directory used and no
+    other is set; unset, the cache goes to the checkout's .jax_cache/,
+    which .gitignore lists — never a temporary path."""
+    env = {}
+    if env_dir:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / env_dir)
+    used, configured = _fresh_python(
+        "import jax\n"
+        "from fastoptsolver_tpu.utils.compile_cache import "
+        "configure_compile_cache\n"
+        "print(configure_compile_cache())\n"
+        "print(jax.config.jax_compilation_cache_dir)\n", **env
+    ).splitlines()
+    want = str(tmp_path / env_dir) if env_dir else str(_ROOT / ".jax_cache")
+    assert used == configured == want
+    if not env_dir:
+        assert ".jax_cache/" in (_ROOT / ".gitignore").read_text().split()
+
+
+def test_import_leaves_backends_uninitialized():
+    """Importing the package must not open a device: a parent process that
+    imports it and then spawns one child per card (bench/scaling.py) would
+    otherwise hold a card itself."""
+    out = _fresh_python(
+        "import fastoptsolver_tpu, fastoptsolver_tpu.bench.scaling\n"
+        "from jax._src import xla_bridge\n"
+        "print(len(xla_bridge._backends))\n"
+    )
+    assert out == "0"
